@@ -2,14 +2,16 @@
 
 Each `csrc/<name>.cu` compiles with `nvcc` into
 `abip_tpu_torch/_build/<name>-<hash>.so`, where the hash covers the
-source and the flags, and loads through `ctypes` (a plain C interface,
-no PyTorch headers: the build takes seconds).  Nothing is compiled or
-imported when this module is imported.
+source, every header of `csrc/` and the flags, and loads through
+`ctypes` (a plain C interface, no PyTorch headers: the build takes
+seconds).  `load_all` builds several sources at once, one `nvcc` each.
+Nothing is compiled or imported when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from concurrent.futures import ThreadPoolExecutor
 import hashlib
 import os
 import shutil
@@ -44,14 +46,23 @@ def _nvcc() -> str:
                        "of abip_tpu_torch are built from source at first use")
 
 
+def source_key(name: str, csrc: Path = CSRC) -> str:
+    """The cache key of `csrc/<name>.cu`: a hash of the source, of every
+    header in `csrc/` (a source may include any of them) and of the
+    flags."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> Library:
     """Build `csrc/<name>.cu` if its hashed library is missing, then load
     it.  Raises on a failed build, with nvcc's output."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{name}-{digest}.so"
+    so = BUILD_DIR / f"{name}-{source_key(name)}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -66,3 +77,13 @@ def load(name: str) -> Library:
             raise RuntimeError(f"nvcc failed to build {src}:\n{log}")
         os.replace(tmp, so)   # atomic: a concurrent build never sees half a file
     return Library(ctypes.CDLL(str(so)), seconds, log)
+
+
+def load_all(names) -> dict:
+    """`load` each source, the builds running side by side (one `nvcc`
+    process each); returns {name: Library}.  Raises on the first failed
+    build after all have finished."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        futures = {name: pool.submit(load, name) for name in names}
+    return {name: f.result() for name, f in futures.items()}
