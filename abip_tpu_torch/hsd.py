@@ -1,10 +1,12 @@
 """HSD/ADMM step math of the LP solvers, batched over lanes.
 
-Port of `abip_tpu/hsd.py`.  Every function takes a leading lane axis:
-an iterate `u` or `v` is a `(B, m + n + 1)` tensor, a per-lane scalar
-is a `(B,)` tensor, and a matrix-vector product is a callable from
-`(B, k)` to `(B, r)`.  Comparisons with NaN are False, as in the
-reference (`abip.c:1613-1641`), so a NaN certificate never fires.
+Port of `abip_tpu/hsd.py`.  The batched solvers give every function a
+leading lane axis: an iterate `u` or `v` is a `(B, m + n + 1)` tensor, a
+per-lane scalar is a `(B,)` tensor, and a matrix-vector product is a
+callable from `(B, k)` to `(B, r)`.  The host LP driver gives the same
+functions one instance: `(m + n + 1,)` iterates and 0-d scalars.
+Comparisons with NaN are False, as in the reference
+(`abip.c:1613-1641`), so a NaN certificate never fires.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ def _lane(x, like):
     """A per-lane `(B,)` tensor as a `(B, 1)` column against `(B, k)`
     data; floats and already-broadcastable tensors pass through."""
     if isinstance(x, torch.Tensor) and x.dim() == 1 and like.dim() == 2:
-        return x[:, None]
+        return x[..., None]
     return x
 
 
@@ -40,22 +42,49 @@ def barrier_prox(t, lam):
     return torch.where(t >= 0, pos, neg)
 
 
+def project_lin_sys(u, v, h, g, g_th, rho_y, solve_fn, k, m, n):
+    """u_t = (I+Q)^-1 (u+v) via the cached KKT solve + rank-1 tau
+    correction (`abip.c:539-562`).  `solve_fn(w_y, w_x, k, warm)` solves
+    [[rho_y I, A],[A', -I]] z = w and returns (z_y, z_x, aux_iters);
+    `g_th` is a tensor.  Returns (u_t, aux_iters)."""
+    l = m + n + 1
+    r = u + v
+    q = torch.cat([rho_y * r[..., :m], r[..., m:m + n]], dim=-1)
+    r_tau = r[..., l - 1:l]
+    q = q - r_tau * h
+    q = q - ((q * g).sum(-1, keepdim=True) / (g_th + 1.0)[..., None]) * h
+    z_y, z_x, its = solve_fn(q[..., :m], -q[..., m:], k, u[..., :m])
+    z = torch.cat([z_y, z_x], dim=-1)
+    tau_t = r_tau + (z * h).sum(-1, keepdim=True)
+    return torch.cat([z, tau_t], dim=-1), its
+
+
 def admm_update(u, v, u_prev, u_t, lam, alpha, m):
     """project_barrier (`abip.c:717-748`) + update_dual_vars (`:567-584`)."""
-    head = u_t[:, :m] - v[:, :m]
-    rel = alpha * u_t[:, m:] + (1 - alpha) * u_prev[:, m:]
-    tail = barrier_prox(rel - v[:, m:], lam)
-    u_new = torch.cat([head, tail], dim=1)
-    v_new = torch.cat([v[:, :m], v[:, m:] + (
-        tail - alpha * u_t[:, m:] - (1 - alpha) * u_prev[:, m:])], dim=1)
+    head = u_t[..., :m] - v[..., :m]
+    rel = alpha * u_t[..., m:] + (1 - alpha) * u_prev[..., m:]
+    tail = barrier_prox(rel - v[..., m:], lam)
+    u_new = torch.cat([head, tail], dim=-1)
+    v_new = torch.cat([v[..., :m], v[..., m:] + (
+        tail - alpha * u_t[..., m:] - (1 - alpha) * u_prev[..., m:])], dim=-1)
+    return u_new, v_new
+
+
+def admm_update_half(u, v, u_t, lam, m):
+    """half_update variant (`abip.c:663-711`)."""
+    v_half = v + 0.5 * (u - u_t)
+    w = u_t - v_half
+    tail = barrier_prox(w[..., m:], lam)
+    u_new = torch.cat([w[..., :m], tail], dim=-1)
+    v_new = v_half + (u_new - u_t)
     return u_new, v_new
 
 
 def q_norm_resd(u, v, matvec, rmatvec, b, c, m, n):
     """HSD-operator residual of one iterate (`abip.c:1951-1996`)."""
     l = m + n + 1
-    y, x, tau = u[:, :m], u[:, m:m + n], u[:, l - 1:l]
-    s, kap = v[:, m:m + n], v[:, l - 1]
+    y, x, tau = u[..., :m], u[..., m:m + n], u[..., l - 1:l]
+    s, kap = v[..., m:m + n], v[..., l - 1]
     q1 = matvec(x) - b * tau
     q2 = rmatvec(y) + s - c * tau
     q3 = (y * b).sum(-1) - (x * c).sum(-1) - kap
@@ -77,8 +106,10 @@ class LPResiduals(NamedTuple):
 
     @staticmethod
     def init(B, dtype=torch.float64, device=None):
-        z = torch.zeros((B,), dtype=dtype, device=device)
-        nan = torch.full((B,), float("nan"), dtype=dtype, device=device)
+        """B lanes, or one instance's 0-d fields for B=()."""
+        shape = (B,) if isinstance(B, int) else tuple(B)
+        z = torch.zeros(shape, dtype=dtype, device=device)
+        nan = torch.full(shape, float("nan"), dtype=dtype, device=device)
         return LPResiduals(nan, nan, nan, nan, nan, z, z, z, z)
 
 
@@ -88,18 +119,20 @@ def lp_residuals(u, v, matvec, rmatvec, b, c, pr_scale, dr_scale, obj_scale,
     (unscaled) units via the pr/dr scale vectors.  `obj_scale`, `nm_b`
     and `nm_c` are per-lane `(B,)` tensors."""
     l = m + n + 1
-    y, x, tau_raw = u[:, :m], u[:, m:m + n], u[:, l - 1]
-    s = v[:, m:m + n]
+    y, x, tau_raw = u[..., :m], u[..., m:m + n], u[..., l - 1]
+    s = v[..., m:m + n]
     tau = tau_raw.abs()
-    kap = v[:, l - 1].abs() / obj_scale
+    kap = v[..., l - 1].abs() / obj_scale
 
     pr = matvec(x)
     nm_A_x = torch.linalg.vector_norm(pr * pr_scale, dim=-1)
-    pres = torch.linalg.vector_norm((pr - b * tau[:, None]) * pr_scale, dim=-1)
+    pres = torch.linalg.vector_norm((pr - b * tau[..., None]) * pr_scale,
+                                    dim=-1)
 
     dr = rmatvec(y) + s
     nm_At_ys = torch.linalg.vector_norm(dr * dr_scale, dim=-1)
-    dres = torch.linalg.vector_norm((dr - c * tau[:, None]) * dr_scale, dim=-1)
+    dres = torch.linalg.vector_norm((dr - c * tau[..., None]) * dr_scale,
+                                    dim=-1)
 
     bty = (y * b).sum(-1) / obj_scale
     ctx = (x * c).sum(-1) / obj_scale
@@ -142,10 +175,10 @@ def lp_converged_code(r: LPResiduals, eps, pfeasopt, total_pos):
 def reinit_rebalance(u, v, sigma, m):
     """`reinitialize_vars(w, 0)` (`abip.c:996-1075`): shrink the larger of
     (u_i, v_i) by sigma on the barrier coordinates."""
-    ut, vt = u[:, m:], v[:, m:]
+    ut, vt = u[..., m:], v[..., m:]
     cond = ut > vt
-    v_new = torch.cat([v[:, :m], torch.where(cond, sigma * vt, vt)], dim=1)
-    u_new = torch.cat([u[:, :m], torch.where(cond, ut, sigma * ut)], dim=1)
+    v_new = torch.cat([v[..., :m], torch.where(cond, sigma * vt, vt)], dim=-1)
+    u_new = torch.cat([u[..., :m], torch.where(cond, ut, sigma * ut)], dim=-1)
     return u_new, v_new
 
 
@@ -158,7 +191,7 @@ def mu_update_hybrid(mu, u, v, m, eps, hybrid_thresh, dynamic_x, dynamic_eta,
     # aggressive (`abip.c:982-992`)
     mu_aggr = mu * torch.minimum(dynamic_x * mu, mu ** dynamic_eta)
     # LOQO (`abip.c:930-977`)
-    xs = u[:, m:] * v[:, m:]
+    xs = u[..., m:] * v[..., m:]
     minxs = xs.amin(-1)
     mean = xs.mean(-1)
     ksi = minxs / mean.clamp_min(EPS_TOL)

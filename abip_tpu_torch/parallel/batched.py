@@ -30,6 +30,7 @@ import torch
 from .. import hsd
 from ..ops.admm_delta import _mv, _rmv, run_delta_chunk
 from ..scaling import equilibrate, normalize_bc
+from ..device import resolve_device
 from ..settings import Settings
 
 f32 = torch.float32
@@ -378,9 +379,9 @@ def device_solve_lp(As, bs, cs, *, eps=1e-6, max_ipm=200, max_admm=200_000,
 
 
 def _as_f64(x, device):
+    """`x` (numpy or tensor) as an f64 tensor on `device`."""
     if isinstance(x, torch.Tensor):
-        return x.to(device=device if device is not None else x.device,
-                    dtype=f64)
+        return x.to(device=device, dtype=f64)
     return torch.as_tensor(np.asarray(x, dtype=np.float64), device=device)
 
 
@@ -388,20 +389,21 @@ def solve_lp_batch(As, bs, cs, mesh=None, device=None,
                    **kw) -> DeviceSolveResult:
     """Solve a stacked batch of same-shape LPs.
 
-    As: (B, m, n); bs: (B, m); cs: (B, n), numpy arrays or tensors;
-    `device` defaults to the tensors' device (CPU for numpy input).
-    Defaults to cadence="chunk".  Batches larger than `tile` (default
-    16) that it divides run as back-to-back tiles of `tile` lanes;
-    tile=0 disables tiling."""
+    As: (B, m, n); bs: (B, m); cs: (B, n), numpy arrays or tensors,
+    moved to `device` (default: the CUDA card; `device="cpu"` runs on
+    the CPU).  Defaults to cadence="chunk".  Batches larger than `tile`
+    (default 16) that it divides run as back-to-back tiles of `tile`
+    lanes; tile=0 disables tiling."""
     if mesh is not None:
         raise NotImplementedError("mesh sharding " + _NOT_PORTED.format(19))
     kw.setdefault("cadence", "chunk")
     tile = kw.pop("tile", 16)
-    As, bs, cs = (_as_f64(x, device) for x in (As, bs, cs))
+    dev = resolve_device(device)
+    As, bs, cs = (_as_f64(x, dev) for x in (As, bs, cs))
     B = As.shape[0]
     if tile and B > tile and B % tile == 0:
         outs = [solve_lp_batch(As[i:i + tile], bs[i:i + tile],
-                               cs[i:i + tile], tile=tile, **kw)
+                               cs[i:i + tile], tile=tile, device=dev, **kw)
                 for i in range(0, B, tile)]
         return DeviceSolveResult(*[torch.cat(f) for f in zip(*outs)])
     if kw.get("engine") == "sprint2":
@@ -435,11 +437,13 @@ def pad_instances(problems, dtype=torch.float64, device=None):
 
 
 def solve_lp_suite(problems, mesh=None, device=None, **kw):
-    """Solve a heterogeneous list of (A, b, c) LPs as one padded batch.
+    """Solve a heterogeneous list of (A, b, c) LPs as one padded batch on
+    `device` (default: the CUDA card).
 
     Returns a list of per-instance dicts with the unpadded solutions."""
-    As, bs, cs, dims = pad_instances(problems, device=device)
-    res = solve_lp_batch(As, bs, cs, mesh=mesh, **kw)
+    dev = resolve_device(device)
+    As, bs, cs, dims = pad_instances(problems, device=dev)
+    res = solve_lp_batch(As, bs, cs, mesh=mesh, device=dev, **kw)
     out = []
     for i, (m, n) in enumerate(dims):
         out.append({

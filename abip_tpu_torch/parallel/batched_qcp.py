@@ -40,6 +40,7 @@ from ..ops.admm_delta import _mv, _rmv
 from ..ops.conic_delta import run_conic_delta_chunk
 from ..ops.conic_dr import fused_dr_ladder
 from ..qcp import conic_defaults
+from ..device import resolve_device
 from ..scaling import equilibrate_conic
 from .batched import _as_f64, _select
 
@@ -458,8 +459,8 @@ def solve_qcp_batch(As, bs, cs, Q_diags=None, *, engine="steps", device=None,
     """Solve a stacked batch of same-shape conic programs.
 
     As: (B, m, n); bs: (B, m); cs: (B, n); Q_diags: optional (B, n)
-    diagonal quadratic terms; numpy arrays or tensors, on `device`
-    (default: the tensors' device, CPU for numpy input).  `cones` (a
+    diagonal quadratic terms; numpy arrays or tensors, moved to `device`
+    (default: the CUDA card; `device="cpu"` runs on the CPU).  `cones` (a
     `ConeSpec`) is shared by every lane.  engine="sprint2" runs the
     two-phase path (ladder phase 1, anchored-delta endgame); "ladder"
     and "delta" run one phase (the delta endgame needs `init_state`).
@@ -467,7 +468,8 @@ def solve_qcp_batch(As, bs, cs, Q_diags=None, *, engine="steps", device=None,
     `phase1="sprint"`, `endgame="steps"`, `compact_period > 0`, a full
     Q, `precision="f64"`, `k_cap`) raise `NotImplementedError` naming
     their ROADMAP.md item."""
-    As, bs, cs = (_as_f64(x, device) for x in (As, bs, cs))
+    dev = resolve_device(device)
+    As, bs, cs = (_as_f64(x, dev) for x in (As, bs, cs))
     if Q_diags is not None:
         Q_diags = _as_f64(Q_diags, As.device)
     if engine == "sprint2":

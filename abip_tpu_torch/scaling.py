@@ -2,10 +2,10 @@
 
 Port of `abip_tpu/scaling.py`: the LP pipeline (`ABIP(_normalize_A)`,
 `linsys/common.c:150-565`: pc (sqrt-L1 col/row), origin (L2), Ruiz
-(iterated sqrt-Linf) and qp (geometric min*max)) and the cone-tied conic
-equilibration (`equilibrate_conic`, `qcp_config.c:91-491`).  `A` is a
-`(B, m, n)` stack; each pass is a pair of row/column reductions and a
-rescale.  The sparse host variant is not ported yet.
+(iterated sqrt-Linf) and qp (geometric min*max)), the cone-tied conic
+equilibration (`equilibrate_conic`, `qcp_config.c:91-491`) and the host
+LP driver's scipy variant (`equilibrate_sparse`).  `A` is a `(B, m, n)`
+stack; each pass is a pair of row/column reductions and a rescale.
 
 D and E accumulate all applied row/column scalings so that
 A_scaled = diag(1/D) @ A @ diag(1/E) * scale.
@@ -107,15 +107,64 @@ def normalize_bc(scal: ScalingData, b, c, scale):
     """b/c normalization after equilibration (`normalize.c:11-40`):
     scale each vector by the equilibration diagonals, then by
     mean-norm / max(||.||, 1e-3), then by the global `scale`.
-    Returns (b_s, c_s, sc_b, sc_c) with per-lane `(B,)` factors."""
+    Returns (b_s, c_s, sc_b, sc_c) with per-lane `(B,)` factors, or 0-d
+    ones for one instance's `(m,)`/`(n,)` vectors."""
     c_s = c / scal.E
     sc_c = scal.mean_norm_row / torch.linalg.vector_norm(
         c_s, dim=-1).clamp_min(1e-3)
     b_s = b / scal.D
     sc_b = scal.mean_norm_col / torch.linalg.vector_norm(
         b_s, dim=-1).clamp_min(1e-3)
-    return (b_s * sc_b[:, None] * scale, c_s * sc_c[:, None] * scale,
+    return (b_s * sc_b[..., None] * scale, c_s * sc_c[..., None] * scale,
             sc_b, sc_c)
+
+
+def equilibrate_sparse(A, settings, device="cpu"):
+    """Host-side equilibration of a scipy sparse matrix
+    (`abip_tpu/scaling.py:228-277`): the pc pass then `ruiz_iter` Ruiz
+    passes, in f64 scipy row/column reductions, once at setup.  Returns
+    the scaled CSR matrix (with the global `scale`) and one instance's
+    ScalingData, f64 on `device`."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix(A, dtype=np.float64, copy=True)
+    m, n = A.shape
+    D = np.ones(m)
+    E = np.ones(n)
+
+    def clip_col(e, n_other):
+        lo = MIN_SCALE * np.sqrt(n_other)
+        hi = MAX_SCALE * np.sqrt(n_other)
+        return np.where(e < lo, 1.0, np.minimum(e, hi))
+
+    if settings.pc_ruiz_rescale:
+        e = clip_col(np.sqrt(np.asarray(abs(A).sum(axis=0)).ravel()), m)
+        A = A @ sp.diags(1.0 / e)
+        d = clip_col(np.sqrt(np.asarray(abs(A).sum(axis=1)).ravel()), n)
+        A = sp.diags(1.0 / d) @ A
+        D *= d
+        E *= e
+        for _ in range(settings.ruiz_iter):
+            e = clip_col(np.sqrt(abs(A).max(axis=0).toarray().ravel()), m)
+            A = A @ sp.diags(1.0 / e)
+            d = clip_col(np.sqrt(abs(A).max(axis=1).toarray().ravel()), n)
+            A = sp.diags(1.0 / d) @ A
+            D *= d
+            E *= e
+
+    sq = A.copy()
+    sq.data = sq.data**2
+    row_norms = np.sqrt(np.asarray(sq.sum(axis=1)).ravel())
+    col_norms = np.sqrt(np.asarray(sq.sum(axis=0)).ravel())
+    if settings.scale != 1:
+        A = A * settings.scale
+
+    def t(x):
+        return torch.as_tensor(x, dtype=torch.float64, device=device)
+
+    return A, ScalingData(D=t(D), E=t(E), mean_norm_row=t(row_norms.mean()),
+                          mean_norm_col=t(col_norms.mean()))
 
 
 def equilibrate(A, settings) -> tuple[torch.Tensor, ScalingData]:

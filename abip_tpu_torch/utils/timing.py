@@ -2,7 +2,7 @@
 
 PyTorch returns before the device finishes, so a host clock measures
 the enqueue unless the timed region ends in `torch.cuda.synchronize()`.
-Both helpers refuse to run without a card: a number from the CPU is not
+The helpers refuse to run without a card: a number from the CPU is not
 a device time.
 """
 from __future__ import annotations
@@ -36,6 +36,27 @@ def cuda_ms(fn, *, iters=5, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(fn, *, iters=25, warmup=2, hold_cycles=200_000_000):
+    """Median device milliseconds of one `fn()` over `iters` calls, for
+    kernels short enough that issuing them costs the host about as much
+    as running them costs the card: every call and its event pair is
+    queued behind a device-side wait of `hold_cycles` clock cycles, so the
+    card runs them back to back and no host gap is timed."""
+    _need_cuda()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
+    torch.cuda._sleep(hold_cycles)
+    for start, end in events:
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
 def wall_s(fn):

@@ -4,18 +4,27 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout on a machine with a CUDA card and
-`nvcc`.  It imports no JAX.  Phases, each printing its own lines:
+`nvcc`.  It imports no JAX.  Phases, each printing its own lines and its
+duration:
 
-1. build the three kernels from the checkout, one `nvcc` each, side by
+1. build the four kernels from the checkout, one `nvcc` each, side by
    side: K1 `csrc/admm_delta.cu` (LP delta chunk), K2
    `csrc/conic_ladder.cu` (conic phase 1), K3 `csrc/conic_delta.cu`
-   (conic delta chunk);
-2. LP: hold K1 against its plain PyTorch version on mid-solve anchors
-   (B=16 at the smoke shape m=50, n=2000 and a ragged m=37, n=411;
-   T=64, thresh=0; then thresholds that stop lanes mid-chunk); solve a
-   fresh B=16 smoke batch through `solve_lp_batch` (eps=1e-6, chunk
-   T=1536) against scipy's HiGHS; time it; profile it;
-3. conic: hold K2 against its plain version on phase 1 from the cold
+   (conic delta chunk), K5 `csrc/bcsr_spmv.cu` (BCSR SpMV);
+2. host LP driver: hold K5 against its plain version and scipy's f64
+   product (A and A' of the smoke instance, ragged shapes; f64 and f32);
+   solve three fresh smoke LPs (m=1000, n=10000, density 0.1, the shape
+   of `benchmarks/results/r05_lp_m1000_tpu.json`) through `solve_lp`'s
+   workspace on a CSR A, as a user calls it (BCSR layout, dense
+   Cholesky), against scipy's HiGHS; the same driver with linsys="cg" at
+   m=200; time K5 against its plain version and cuSPARSE; profile one
+   solve;
+3. LP batch: hold K1 against its plain PyTorch version on mid-solve
+   anchors (B=16 at the smoke shape m=50, n=2000 and a ragged m=37,
+   n=411; T=64, thresh=0; then thresholds that stop lanes mid-chunk);
+   solve a fresh B=16 smoke batch through `solve_lp_batch` (eps=1e-6,
+   chunk T=1536) against scipy's HiGHS; time it; profile it;
+4. conic: hold K2 against its plain version on phase 1 from the cold
    start (dim-1020 B=16 and a small primal-form batch with a diagonal
    Q), and K3 on mid-solve anchors (T=64, thresh=0; then thresholds that
    stop lanes mid-chunk); solve a fresh B=16 dim-1020 batch through
@@ -24,9 +33,11 @@ Run from the root of a checkout on a machine with a CUDA card and
    it, one K2 launch and one K3 chunk against their plain versions, and
    the f64 pieces; profile one solve.
 
-Exits nonzero, printing no result, without a card or on any failure.
-The last three lines are the kernel summary (JSON), the card's name and
-power limit, and the result (JSON).
+Each main path runs with its kernels' launch counts set to 0 just before
+it and read just after.  Exits nonzero, printing no result, without a
+card or on any failure.  The last three lines are the kernel summary
+(JSON, with each kernel's bound on this card), the card's name and power
+limit, and the result (JSON).
 """
 import json
 import os
@@ -42,6 +53,8 @@ SOLVE_KW = dict(eps=1e-6, max_ipm=200, max_admm=200_000, solver="inverse",
                 engine="delta", cadence="chunk")
 B = 16
 PROBE = 8
+# every kernel source of the port, built side by side
+SOURCES = ("admm_delta", "conic_ladder", "conic_delta", "bcsr_spmv")
 # Kernel vs plain version: rtol 2e-5 plus 1e-5 of each output's largest
 # magnitude (at least 1).  Both run f32 reductions in different orders;
 # each sits about that far from an f64 run of the same recurrence.
@@ -283,9 +296,15 @@ def phase_timing(torch, dev, card):
     t_max = torch.full((B,), 1536, dtype=torch.int32, device=dev)
     ms = cuda_ms(lambda: delta_chunk_cuda(anc, t_max, PROBE), iters=5)
     plain_ms = cuda_ms(lambda: _delta_compute(anc, t_max, PROBE), iters=3)
+    # per iteration A'dz and A dwx (two A passes) and the Ninv apply; per
+    # probe four more A passes (current and averaged criterion)
+    outs = delta_chunk_cuda(anc, t_max, PROBE)
+    _, m, n = anc.A.shape
+    bms, by = kernel_bound(list(anc) + [t_max], outs, outs[6][:, 5],
+                           4 * m * n + 2 * m * m + 8 * m * n / PROBE)
     print(f"timing K1 chunk T=1536 B=16 m=50 n=2000 [{card}]: kernel "
           f"{ms:.3f} ms ({ms * 1e3 / 1536:.2f} us/iteration), plain "
-          f"version {plain_ms:.3f} ms")
+          f"version {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
     # the f64 pieces around the kernel, each issued from the host as the
     # solver issues them (event time includes the device's waits)
     from abip_tpu_torch import hsd
@@ -302,16 +321,21 @@ def phase_timing(torch, dev, card):
     print(f"timing f64 pieces B=16 [{card}]: setup {setup_ms:.3f} ms per "
           f"batch, anchor {anchor_ms:.3f} ms and residual check "
           f"{check_ms:.3f} ms per chunk")
-    return ms, plain_ms
+    return ms, plain_ms, bms, by
 
 
 def profile_solve(torch, run, kernels, label):
     """Device time of one solve by kernel, from the profiler; `kernels`
-    maps a label to a substring of a kernel's name."""
+    maps a label to a substring (or a tuple of substrings) of kernel
+    names.  Only the device's kernel events are summed (an op's own
+    device time would count its kernels twice).  The busy share is given
+    against the profiled wall and against an unprofiled run of the same
+    solve just before it."""
     from torch.profiler import ProfilerActivity, profile
 
     from abip_tpu_torch.utils.timing import wall_s
 
+    plain_sec, _ = wall_s(run)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         sec, _ = wall_s(run)
@@ -322,19 +346,26 @@ def profile_solve(torch, run, kernels, label):
                 return float(getattr(e, key))
         return 0.0
 
-    events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()]
+    events = [(e.key, dev_us(e), e.count) for e in prof.key_averages()
+              if str(getattr(e, "device_type", "CUDA")).endswith("CUDA")]
     total = sum(us for _, us, _ in events)
     if total <= 0.0:
         print(f"profile {label}: the profiler recorded no device time (not "
               "measured)")
         return
-    shares = []
-    for name, sub in kernels.items():
-        us = sum(t for k, t, _ in events if sub in k)
+    shares, named = [], 0.0
+    for name, subs in kernels.items():
+        subs = (subs,) if isinstance(subs, str) else subs
+        us = sum(t for k, t, _ in events if any(s in k for s in subs))
+        named += us
         shares.append(f"{name} {us / 1e3:.1f} ms = {100 * us / total:.1f}%")
-    print(f"profile {label} (wall {sec:.3f} s under the profiler): device "
-          f"busy {total / 1e3:.1f} ms = {100 * total / 1e6 / sec:.1f}% of the "
-          f"wall; {', '.join(shares)} of device time")
+    shares.append(f"the rest {(total - named) / 1e3:.1f} ms = "
+                  f"{100 * (total - named) / total:.1f}%")
+    print(f"profile {label} (wall {sec:.3f} s under the profiler, "
+          f"{plain_sec:.3f} s without): device busy {total / 1e3:.1f} ms = "
+          f"{100 * total / 1e6 / sec:.1f}% of the profiled wall, "
+          f"{100 * total / 1e6 / plain_sec:.1f}% of the unprofiled one; "
+          f"{', '.join(shares)} of device time")
     for key, us, count in sorted(events, key=lambda e: -e[1])[:6]:
         print(f"profile   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
 
@@ -725,9 +756,16 @@ def phase_conic_timing(torch, dev, card):
     k2_ms = cuda_ms(lambda: ladder_cuda(op, co, t_max, **run), iters=5)
     k2_plain = cuda_ms(lambda: _dr_ladder_compute(op, co, t_max, **run),
                        iters=3)
+    # Woodbury form, per iteration: four A passes and one G^-1 pass; per
+    # trip of PROBE iterations four more A passes (criterion, error ratio)
+    m, n = op.A.shape[1:]
+    outs = ladder_cuda(op, co, t_max, **run)
+    k2_bound = kernel_bound(list(op) + list(co) + [t_max], outs,
+                            outs[4][:, 3],
+                            8 * m * n + 2 * m * m + 8 * m * n / PROBE)
     print(f"timing K2 one phase-1 launch B=16 dim-1020 (32 iterations, 4 "
           f"stages) [{card}]: kernel {k2_ms:.3f} ms, plain version "
-          f"{k2_plain:.3f} ms")
+          f"{k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
     st = conic_phase1_state(torch, P, cones)
     anc = conic_anchor(torch, P, cones, st, 0.0)
     t_max = torch.full((B,), 512, dtype=torch.int32, device=dev)
@@ -735,9 +773,15 @@ def phase_conic_timing(torch, dev, card):
     k3_ms = cuda_ms(lambda: conic_delta_cuda(anc, co, t_max, **run), iters=5)
     k3_plain = cuda_ms(lambda: _conic_delta_compute(anc, co, t_max, **run),
                        iters=1)
+    # the linear pipeline of K2 on deltas; per probe two more A passes
+    outs = conic_delta_cuda(anc, co, t_max, **run)
+    k3_bound = kernel_bound(list(anc) + list(co) + [t_max], outs,
+                            outs[4][:, 3],
+                            8 * m * n + 2 * m * m + 4 * m * n / PROBE)
     print(f"timing K3 chunk T=512 B=16 dim-1020 [{card}]: kernel "
           f"{k3_ms:.3f} ms ({k3_ms * 1e3 / 512:.2f} us/iteration), plain "
-          f"version {k3_plain:.3f} ms (one chunk)")
+          f"version {k3_plain:.3f} ms (one chunk), bound {k3_bound[0]:.4f} "
+          f"ms ({k3_bound[1]})")
     As, bs, cs, _ = (None if x is None else torch.as_tensor(x, device=dev)
                      for x in stacks)
     m, n = CONIC_M, P.A.shape[2]
@@ -764,7 +808,7 @@ def phase_conic_timing(torch, dev, card):
     print(f"timing conic f64 pieces B=16 dim-1020 [{card}]: prepare "
           f"{prep_ms:.3f} ms per batch, anchor {anchor_ms:.3f} ms and "
           f"residual check + f64 criterion {check_ms:.3f} ms per chunk")
-    return (k2_ms, k2_plain), (k3_ms, k3_plain)
+    return (k2_ms, k2_plain) + k2_bound, (k3_ms, k3_plain) + k3_bound
 
 
 def phase_conic_profile(torch, dev):
@@ -772,6 +816,276 @@ def phase_conic_profile(torch, dev):
     profile_solve(torch, lambda: solve_conic(torch, cones, stacks, dev),
                   {"K2": "conic_ladder_kernel", "K3": "conic_delta_kernel"},
                   "one conic solve")
+
+
+# ---------------------------------------------------------------------------
+# the host LP driver and K5
+# ---------------------------------------------------------------------------
+
+# `benchmarks/results/r05_lp_m1000_tpu.json`'s at-scale LP shape
+HOST_LP = dict(m=1000, n_rand=9000, density=0.1)
+HOST_SEEDS = (11, 12, 13)
+HOST_CG = dict(m=200, n_rand=1800, density=0.1)
+HOST_EPS = 1e-6
+HIGHS_LIMIT_S = 60.0
+PROFILE_ADMM = 600
+# K5 against its plain version and scipy: f64 within 1e-12 of |A| |x| per
+# row (both sum the same products in other orders); f32 within 1e-5 of it.
+SPMV_TOL = {"f64": 1e-12, "f32": 1e-5}
+# NVIDIA's H100 SXM data sheet: HBM3 bandwidth and the peaks outside the
+# tensor cores (the kernels here use none)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+
+
+def bound_ms(nbytes, flops, kind):
+    """(least milliseconds the card needs, what bounds it): bytes over the
+    memory rate against operations over the peak of their type."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = flops / PEAK_FLOPS[kind]
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
+        "operations"
+
+
+def kernel_bound(inputs, outputs, t_done, flops_per_iteration):
+    """`bound_ms` of an f32 chunk kernel: every input tensor read once and
+    every output written once, against the iterations this launch ran
+    (the sum of `t_done` over lanes) times its operations per iteration."""
+    nbytes = sum(t.numel() * t.element_size() for t in list(inputs)
+                 + list(outputs) if hasattr(t, "element_size"))
+    iters = float(t_done.double().sum())
+    return bound_ms(nbytes, iters * flops_per_iteration, "f32")
+
+
+def host_lp(seed, **shape):
+    """(A, b, c) of `bench.reference_smoke_lp` with A as CSR."""
+    import scipy.sparse as sp
+
+    from bench import reference_smoke_lp
+
+    A, b, c = reference_smoke_lp(seed=seed, **(shape or HOST_LP))
+    return sp.csr_matrix(A), b, c
+
+
+def spmv_cases():
+    """(label, scipy CSR matrix) of K5's parity cases: A and A' of the
+    host-LP smoke instance, and ragged shapes (m not a multiple of 8, n
+    not a multiple of 128, empty block rows, rows with fewer tiles than
+    the widest)."""
+    import scipy.sparse as sp
+
+    A = host_lp(HOST_SEEDS[0])[0]
+    R = sp.random(37, 300, density=0.2, random_state=np.random.RandomState(5),
+                  format="lil")
+    R[8:24, :] = 0.0                        # block rows 1 and 2 empty
+    R[30:, 128:] = 0.0                      # last block row: fewer tiles
+    W = sp.random(3, 1000, density=0.5, random_state=np.random.RandomState(6))
+    return (("smoke A 1000x10000", A), ("smoke A' 10000x1000", A.T.tocsr()),
+            ("ragged 37x300", sp.csr_matrix(R)),
+            ("ragged A' 300x37", sp.csr_matrix(R).T.tocsr()),
+            ("one block row 3x1000", sp.csr_matrix(W)))
+
+
+def spmv_parity(torch, dev, label, A, kind):
+    """K5 on one matrix against its plain version and scipy's f64 product,
+    with NaN past the end of x (never read); raises beyond SPMV_TOL.
+    Returns the largest |kernel - plain|."""
+    from abip_tpu_torch.ops.spmv import BCSRMatrix, _bcsr_ref, bcsr_matvec_cuda
+
+    dt = {"f64": torch.float64, "f32": torch.float32}[kind]
+    m, n = A.shape
+    x64 = np.random.default_rng(9).standard_normal(n)
+    scale = abs(A) @ np.abs(x64)                 # |A| |x| per row
+    ref = A @ x64
+    B = BCSRMatrix.from_scipy(A, dtype=dt, device=dev)
+    buf = torch.full((n + 64,), float("nan"), dtype=dt, device=dev)
+    buf[:n] = torch.as_tensor(x64, dtype=dt, device=dev)
+    ker = bcsr_matvec_cuda(B, buf[:n])
+    plain = _bcsr_ref(B, buf[:n])
+    torch.cuda.synchronize()
+    k, p = ker.double().cpu().numpy(), plain.double().cpu().numpy()
+    if not np.isfinite(k).all():
+        raise AssertionError(f"K5 {label} {kind}: non-finite output")
+    tol = SPMV_TOL[kind] * scale + 1e-300
+    err = np.abs(k - p)
+    if (err > tol).any() or (kind == "f64" and (np.abs(k - ref) > tol).any()):
+        raise AssertionError(
+            f"K5 {label} {kind}: |kernel-plain| {err.max():.3e}, "
+            f"|kernel-scipy| {np.abs(k - ref).max():.3e} beyond "
+            f"{SPMV_TOL[kind]} |A||x|")
+    print(f"parity K5 {label} {kind} (tiles {tuple(B.data.shape)}): "
+          f"max|kernel-plain| {err.max():.3e}, max|kernel-scipy f64| "
+          f"{np.abs(k - ref).max():.3e} (limit {SPMV_TOL[kind]} |A||x|, "
+          f"largest {scale.max():.3e}: ok)")
+    return float(err.max())
+
+
+def phase_spmv_parity(torch, dev):
+    """K5 on every case of `spmv_cases`, f64 and f32.  Returns the largest
+    f64 |kernel - plain| (the driver's working type)."""
+    worst = 0.0
+    for label, A in spmv_cases():
+        worst = max(worst, spmv_parity(torch, dev, label, A, "f64"))
+        spmv_parity(torch, dev, label, A, "f32")
+    return worst
+
+
+def lp_certificate(A, b, c, sol):
+    """res_pri, res_dual, rel_gap of the returned (x, y, s), in f64."""
+    x, y, s = sol.x, sol.y, sol.s
+    pri = np.linalg.norm(A @ x - b) / (1 + np.linalg.norm(b))
+    dual = np.linalg.norm(A.T @ y + s - c) / (1 + np.linalg.norm(c))
+    cx, by = c @ x, b @ y
+    return pri, dual, abs(cx - by) / (1 + abs(cx) + abs(by))
+
+
+def highs(A, b, c):
+    """(optimal objective, seconds) of scipy's HiGHS interior point (with
+    crossover) on the LP."""
+    import time
+
+    from scipy.optimize import linprog
+
+    t0 = time.perf_counter()
+    ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs-ipm")
+    if ref.status != 0:
+        raise AssertionError(f"scipy HiGHS failed: {ref.message}")
+    return ref.fun, time.perf_counter() - t0
+
+
+def solve_host(torch, A, b, c, **kw):
+    """One `solve_lp` on the card, as a user calls it (default device),
+    with K5 counted from 0; returns (seconds, solution, workspace, K5
+    launches)."""
+    from abip_tpu_torch import LPWorkspace, Settings
+    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
+    from abip_tpu_torch.utils.timing import wall_s
+
+    def run():
+        ws = LPWorkspace(A, b, c, Settings(eps=HOST_EPS, **kw))
+        return ws, ws.solve()
+
+    bcsr_matvec_cuda.launches = 0
+    sec, (ws, sol) = wall_s(run)
+    return sec, sol, ws, bcsr_matvec_cuda.launches
+
+
+def phase_host_lp(torch, dev):
+    """The host LP driver at full width: `solve_lp`'s workspace on a CSR A
+    of the smoke shape, three fresh seeds, against scipy's HiGHS (or, if
+    HiGHS takes longer than HIGHS_LIMIT_S on the first seed, the later
+    seeds against their own certificate).  Returns the first solve's K5
+    launches."""
+    first = None
+    highs_ok = True
+    for seed in HOST_SEEDS:
+        A, b, c = host_lp(seed)
+        sec, sol, ws, launches = solve_host(torch, A, b, c)
+        layout = ws.A_op.layout
+        print(f"host LP seed {seed} m=1000 n=10000 nnz={A.nnz}: "
+              f"{sol.status_name}, IPM {sol.ipm_iters}, ADMM "
+              f"{sol.admm_iters}, wall {sec:.3f} s (setup "
+              f"{sol.setup_time:.3f} s, solve {sol.solve_time:.3f} s), "
+              f"{sol.admm_iters / sol.solve_time:.1f} ADMM it/s, layout "
+              f"{layout}, linsys {ws.linsys_kind}, K5 launches {launches} "
+              f"({launches / max(1, sol.admm_iters):.2f} per ADMM iteration)")
+        if layout != "bcsr" or ws.linsys_kind != "dense":
+            raise AssertionError(f"host LP: layout {layout}, linsys "
+                                 f"{ws.linsys_kind}; expected bcsr, dense")
+        if sol.status_name != "Solved" or launches <= 0:
+            raise AssertionError(f"host LP seed {seed}: {sol.status_name}, "
+                                 f"K5 launched {launches}x")
+        if not (np.isfinite(sol.x).all() and np.isfinite(sol.pobj)):
+            raise AssertionError(f"host LP seed {seed}: non-finite solution")
+        cert = lp_certificate(A, b, c, sol)
+        if highs_ok:
+            fun, hs = highs(A, b, c)
+            rel = abs(sol.pobj - fun) / max(1.0, abs(fun))
+            print(f"host LP seed {seed} vs scipy HiGHS ({hs:.1f} s, outside "
+                  f"the timed solve): pobj {sol.pobj:.10g} vs {fun:.10g}, "
+                  f"relative gap {rel:.3e} (limit 1e-5)")
+            if rel > 1e-5:
+                raise AssertionError(f"host LP seed {seed}: objective off")
+            highs_ok = hs <= HIGHS_LIMIT_S
+        else:
+            print(f"host LP seed {seed} held to its own certificate (HiGHS "
+                  f"took over {HIGHS_LIMIT_S:.0f} s on the first seed): "
+                  f"res_pri {cert[0]:.3e}, res_dual {cert[1]:.3e}, rel_gap "
+                  f"{cert[2]:.3e} (limit {HOST_EPS})")
+            if max(cert) >= HOST_EPS:
+                raise AssertionError(f"host LP seed {seed}: certificate off")
+        if first is None:
+            first = launches
+    return first
+
+
+def phase_host_cg(torch, dev):
+    """The same driver with linsys="cg" on the m=200 smoke: PCG's products
+    launch K5 too."""
+    A, b, c = host_lp(22, **HOST_CG)
+    sec, sol, ws, launches = solve_host(torch, A, b, c, linsys="cg")
+    fun, hs = highs(A, b, c)
+    rel = abs(sol.pobj - fun) / max(1.0, abs(fun))
+    print(f"host LP cg m=200 n=2000: {sol.status_name}, IPM "
+          f"{sol.ipm_iters}, ADMM {sol.admm_iters}, avg_cg_iters "
+          f"{sol.avg_cg_iters:.2f}, wall {sec:.3f} s, layout "
+          f"{ws.A_op.layout}, K5 launches {launches}; vs HiGHS relative gap "
+          f"{rel:.3e} (limit 1e-5)")
+    if sol.status_name != "Solved" or rel > 1e-5 or launches <= 0:
+        raise AssertionError(f"host LP cg: {sol.status_name}, rel {rel:.3e}, "
+                             f"K5 {launches}x")
+
+
+def phase_spmv_timing(torch, dev, card):
+    """K5 per launch on A and A' of the smoke instance against its plain
+    version and cuSPARSE (`torch.mv` on a CSR tensor, the yardstick), with
+    its bound.  Returns (ms, plain_ms, library_ms, bound_ms, bound_by) of
+    A."""
+    from abip_tpu_torch.ops.spmv import BCSRMatrix, _bcsr_ref, bcsr_matvec_cuda
+    from abip_tpu_torch.utils.timing import queued_ms
+
+    out = None
+    A = host_lp(HOST_SEEDS[0])[0]
+    for label, M in (("A", A), ("A'", A.T.tocsr())):
+        m, n = M.shape
+        B = BCSRMatrix.from_scipy(M, dtype=torch.float64, device=dev)
+        x = torch.randn(n, dtype=torch.float64, device=dev)
+        csr = torch.sparse_csr_tensor(
+            torch.as_tensor(M.indptr, dtype=torch.int64, device=dev),
+            torch.as_tensor(M.indices, dtype=torch.int64, device=dev),
+            torch.as_tensor(M.data, dtype=torch.float64, device=dev),
+            size=(m, n))
+        ms = queued_ms(lambda: bcsr_matvec_cuda(B, x))
+        plain = queued_ms(lambda: _bcsr_ref(B, x))
+        lib = queued_ms(lambda: torch.mv(csr, x))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (B.data, B.cols, x)) + 8 * m
+        bms, by = bound_ms(nbytes, 2.0 * B.data.numel(), "f64")
+        csr_mb = M.nnz * 12 / 1e6
+        print(f"timing K5 {label} f64 tiles {tuple(B.data.shape)} "
+              f"({nbytes / 1e6:.1f} MB) [{card}]: kernel {ms * 1e3:.1f} us, "
+              f"plain {plain * 1e3:.1f} us, cuSPARSE CSR {lib * 1e3:.1f} us, "
+              f"bound {bms * 1e3:.1f} us ({by}; the nonzeros alone in CSR: "
+              f"{csr_mb:.1f} MB = {csr_mb / 3.35:.1f} us), "
+              f"{nbytes / ms / 1e6:.0f} GB/s")
+        if out is None:
+            out = (ms, plain, lib, bms, by)
+    return out
+
+
+def phase_host_profile(torch, dev):
+    """One host LP solve, its workspace set up beforehand, cut at
+    PROFILE_ADMM iterations (the profiler's own processing grows with the
+    ~45 events of every iteration)."""
+    from abip_tpu_torch import LPWorkspace, Settings
+
+    A, b, c = host_lp(HOST_SEEDS[1])
+    ws = LPWorkspace(A, b, c, Settings(eps=HOST_EPS,
+                                       max_admm_iters=PROFILE_ADMM))
+    profile_solve(torch, ws.solve,
+                  {"K5": ("bcsr_spmv_kernel",),
+                   "cholesky_solve (trsm/trsv)": ("trsm", "trsv")},
+                  "one host LP solve")
 
 
 def main():
@@ -792,10 +1106,17 @@ def main():
     card = card_line()
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    t_start = time.perf_counter()
+
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
 
     t0 = time.perf_counter()
-    built = load_all(["admm_delta", "conic_ladder", "conic_delta"])
-    print(f"build: three sources side by side in "
+    built = load_all(SOURCES)
+    print(f"build: {len(SOURCES)} sources side by side in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, lib in built.items():
         regs = [ln.strip() for ln in lib.log.splitlines()
@@ -803,34 +1124,45 @@ def main():
         print(f"build {name}.cu: {lib.build_seconds:.1f} s [{card}] "
               f"{' | '.join(regs)}")
 
-    k1_err = phase_kernel_parity(torch, dev)
-    k1_launches = phase_main_path(torch, dev)
-    k1_ms, k1_plain = phase_timing(torch, dev, card)
-    phase_profile(torch, dev)
+    k5_err = phase("K5 parity", phase_spmv_parity, torch, dev)
+    k5_launches = phase("host LP main path", phase_host_lp, torch, dev)
+    phase("host LP cg", phase_host_cg, torch, dev)
+    k5 = phase("K5 timing", phase_spmv_timing, torch, dev, card)
+    phase("host LP profile", phase_host_profile, torch, dev)
 
-    k2_err = max(ladder_parity(torch, dev, *c) for c in CONIC_CASES)
-    k3_err = max(delta_parity(torch, dev, *c) for c in CONIC_CASES)
-    k2_launches, k3_launches = phase_conic_main(torch, dev)
-    (k2_ms, k2_plain), (k3_ms, k3_plain) = phase_conic_timing(torch, dev,
-                                                              card)
-    phase_conic_profile(torch, dev)
+    k1_err = phase("K1 parity", phase_kernel_parity, torch, dev)
+    k1_launches = phase("LP batch main path", phase_main_path, torch, dev)
+    k1 = phase("LP batch timing", phase_timing, torch, dev, card)
+    phase("LP batch profile", phase_profile, torch, dev)
+
+    k2_err = phase("K2 parity", lambda: max(
+        ladder_parity(torch, dev, *c) for c in CONIC_CASES))
+    k3_err = phase("K3 parity", lambda: max(
+        delta_parity(torch, dev, *c) for c in CONIC_CASES))
+    k2_launches, k3_launches = phase("conic main path", phase_conic_main,
+                                     torch, dev)
+    k2, k3 = phase("conic timing", phase_conic_timing, torch, dev, card)
+    phase("conic profile", phase_conic_profile, torch, dev)
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+
+    def entry(name, source, replaces, launches, err, times, library=None):
+        ms, plain, bms, by = times
+        return {"name": name, "route": "cuda",
+                "source": f"abip_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": bms, "bound_by": by, "library_ms": library}
 
     print(json.dumps({"kernels": [
-        {"name": "delta_chunk_kernel", "route": "cuda",
-         "source": "abip_tpu_torch/csrc/admm_delta.cu",
-         "replaces": "abip_tpu/ops/admm_delta.py:287",
-         "launches": k1_launches, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain},
-        {"name": "conic_ladder_kernel", "route": "cuda",
-         "source": "abip_tpu_torch/csrc/conic_ladder.cu",
-         "replaces": "abip_tpu/ops/conic_pallas.py:703",
-         "launches": k2_launches, "max_abs_err": k2_err, "ms": k2_ms,
-         "plain_ms": k2_plain},
-        {"name": "conic_delta_kernel", "route": "cuda",
-         "source": "abip_tpu_torch/csrc/conic_delta.cu",
-         "replaces": "abip_tpu/ops/conic_delta.py:718",
-         "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms,
-         "plain_ms": k3_plain}]}))
+        entry("delta_chunk_kernel", "admm_delta.cu",
+              "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1),
+        entry("conic_ladder_kernel", "conic_ladder.cu",
+              "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2),
+        entry("conic_delta_kernel", "conic_delta.cu",
+              "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3),
+        entry("bcsr_spmv_kernel", "bcsr_spmv.cu",
+              "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,
+              (k5[0], k5[1], k5[3], k5[4]), library=k5[2])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,8 @@ from conftest import random_lp  # noqa: E402
 KW = dict(eps=1e-6, max_ipm=200, max_admm=400_000, solver="inverse",
           qres_period=768, avg_period=20, precision="mixed",
           cadence="chunk", engine="delta")
+# the port's entry points run on the CUDA card unless told otherwise
+DEV = dict(device="cpu")
 
 
 def _stack(problems):
@@ -33,7 +35,7 @@ def _stack(problems):
 def smoke3():
     data = [reference_smoke_lp(m=30, n_rand=400, seed=11 + i)
             for i in range(3)]
-    res = batched.solve_lp_batch(*_stack(data), **KW)
+    res = batched.solve_lp_batch(*_stack(data), **DEV, **KW)
     return data, res
 
 
@@ -69,7 +71,7 @@ def test_lane_equals_one_lane_solve(smoke3):
     are equal; x agrees to 1e-8 absolute, since a batched product of
     one lane may take another kernel than one of three."""
     data, res = smoke3
-    one = batched.solve_lp_batch(*_stack(data[1:2]), **KW)
+    one = batched.solve_lp_batch(*_stack(data[1:2]), **DEV, **KW)
     assert int(one.status[0]) == int(res.status[1])
     assert int(one.ipm_iters[0]) == int(res.ipm_iters[1])
     assert int(one.admm_iters[0]) == int(res.admm_iters[1])
@@ -81,7 +83,7 @@ def test_mu_stop_exits_at_phase_boundary(smoke3):
     """mu_stop ends the outer loop once the barrier parameter passes it:
     status 0, with the state and mu returned for a continuation."""
     data, res = smoke3
-    r = batched.solve_lp_batch(*_stack(data), mu_stop=1e-3, **KW)
+    r = batched.solve_lp_batch(*_stack(data), mu_stop=1e-3, **DEV, **KW)
     assert r.status.tolist() == [0, 0, 0]
     assert (r.mu < 1e-3).all() and (r.mu > 0).all()
     assert (r.ipm_iters < res.ipm_iters).all()
@@ -98,7 +100,7 @@ def test_certificates(case, status):
     else:
         A, b, c = [[1.0, -1.0]], [0.0], [-1.0, 0.0]
     r = batched.solve_lp_batch(np.asarray([A]), np.asarray([b]),
-                               np.asarray([c]), **KW)
+                               np.asarray([c]), **DEV, **KW)
     assert int(r.status[0]) == status
 
 
@@ -107,8 +109,8 @@ def test_tiling_matches_whole_batch():
     rng = np.random.default_rng(21)
     probs = [random_lp(rng, m=6, n=15) for _ in range(4)]
     kw = dict(KW, qres_period=64)
-    whole = batched.solve_lp_batch(*_stack(probs), tile=0, **kw)
-    tiled = batched.solve_lp_batch(*_stack(probs), tile=2, **kw)
+    whole = batched.solve_lp_batch(*_stack(probs), tile=0, **DEV, **kw)
+    tiled = batched.solve_lp_batch(*_stack(probs), tile=2, **DEV, **kw)
     assert tiled.status.tolist() == whole.status.tolist() == [1] * 4
     assert tiled.admm_iters.tolist() == whole.admm_iters.tolist()
     np.testing.assert_allclose(tiled.pobj.numpy(), whole.pobj.numpy(),
@@ -127,7 +129,7 @@ def test_pad_instances_and_suite():
     assert dims == jdims
     for p, r in zip((As, bs, cs), (jAs, jbs, jcs)):
         np.testing.assert_array_equal(p.numpy(), np.asarray(r))
-    out = batched.solve_lp_suite(probs, **dict(KW, qres_period=64))
+    out = batched.solve_lp_suite(probs, **DEV, **dict(KW, qres_period=64))
     for (A, b, c), o in zip(probs, out):
         ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
         assert o["status"] == 1
@@ -145,7 +147,7 @@ def test_unported_options_raise(opts):
     kw = dict(KW, **opts)
     A, b, c = random_lp(np.random.default_rng(0), m=3, n=6)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        batched.solve_lp_batch(A[None], b[None], c[None], **kw)
+        batched.solve_lp_batch(A[None], b[None], c[None], **DEV, **kw)
 
 
 def test_lane_state_from_numpy():

@@ -52,7 +52,8 @@ def _batch(name, count=4):
 def solved(request):
     """Both packages' solves of one batch (one reference compile each)."""
     spec, stacks, stars = _batch(request.param)
-    port = solve_qcp_batch(*stacks, cones=ConeSpec(**spec), **KW)
+    port = solve_qcp_batch(*stacks, device="cpu", cones=ConeSpec(**spec),
+                           **KW)
     ref = jbq.solve_qcp_batch(*(jnp.asarray(x) for x in stacks),
                               cones=JSpec(**spec), **KW)
     return request.param, stacks, stars, port, ref
@@ -92,8 +93,9 @@ def test_lane_equals_one_lane_solve():
     ends: masks freeze the other lanes without touching it."""
     spec, stacks, _ = _batch("woodbury")
     cones = ConeSpec(**spec)
-    whole = solve_qcp_batch(*stacks, cones=cones, **KW)
-    one = solve_qcp_batch(*(x[1:2] for x in stacks), cones=cones, **KW)
+    whole = solve_qcp_batch(*stacks, device="cpu", cones=cones, **KW)
+    one = solve_qcp_batch(*(x[1:2] for x in stacks), device="cpu",
+                          cones=cones, **KW)
     for f in ("status", "ipm_iters", "admm_iters"):
         assert getattr(one, f)[0].item() == getattr(whole, f)[1].item(), f
     np.testing.assert_allclose(one.x[0].numpy(), whole.x[1].numpy(),
@@ -110,7 +112,7 @@ def test_certificates(case, status):
     else:
         A, b, c = [[1.0, -1.0]], [0.0], [-1.0, 0.0]
     r = solve_qcp_batch(np.asarray([A]), np.asarray([b]), np.asarray([c]),
-                        cones=ConeSpec.lp(2), **dict(
+                        device="cpu", cones=ConeSpec.lp(2), **dict(
                             KW, eps=1e-5, inner_crit_period=64))
     assert r.status.tolist() == [status]
 
@@ -120,7 +122,8 @@ def test_cold_delta_start_is_refused():
     raises (`tests/test_conic_ladder.py:85-94`)."""
     spec, stacks, _ = _batch("woodbury", 2)
     with pytest.raises(ValueError, match="endgame"):
-        solve_qcp_batch(*stacks, cones=ConeSpec(**spec), engine="delta",
+        solve_qcp_batch(*stacks, device="cpu", cones=ConeSpec(**spec),
+                        engine="delta",
                         eps=1e-4, cadence="chunk", precision="mixed")
 
 
@@ -137,7 +140,8 @@ def test_unported_options_raise(opts):
     if kw.pop("full_q", False):
         Q = np.stack([np.eye(As.shape[2])] * 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        solve_qcp_batch(As, bs, cs, Q, cones=ConeSpec(**spec), **kw)
+        solve_qcp_batch(As, bs, cs, Q, device="cpu", cones=ConeSpec(**spec),
+                        **kw)
 
 
 @pytest.mark.parametrize("fn", [bq.solve_qcp_het_batch, bq.host_polish])
@@ -152,7 +156,8 @@ def test_defaults_above_b32_need_compaction():
     spec, (As, bs, cs), _ = _batch("woodbury", 1)
     rep = lambda x: np.repeat(x, 33, axis=0)  # noqa: E731
     with pytest.raises(NotImplementedError, match="compact_period"):
-        solve_qcp_batch(rep(As), rep(bs), rep(cs), cones=ConeSpec(**spec),
+        solve_qcp_batch(rep(As), rep(bs), rep(cs), device="cpu",
+                        cones=ConeSpec(**spec),
                         **KW)
 
 

@@ -47,3 +47,21 @@ def test_nothing_builds_at_import():
 
     assert build.load.cache_info().currsize == 0
     assert conic_dr.kernel_lib.cache_info().currsize == 0
+
+
+def test_package_data_ships_every_kernel_source():
+    """An installed package builds its kernels from `csrc/`, so the
+    package data must cover every source and every header there."""
+    import fnmatch
+    import tomllib
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    with open(root / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"][
+            "abip_tpu_torch"]
+    files = [p.relative_to(build.CSRC.parent).as_posix()
+             for p in build.CSRC.iterdir() if p.is_file()]
+    assert any(f.endswith(".cuh") for f in files)
+    for f in files:
+        assert any(fnmatch.fnmatch(f, g) for g in globs), f

@@ -13,6 +13,8 @@ chunk): the cases and tolerances of `chip_smoke.ladder_parity` and
 `chip_smoke.delta_parity`, on instances of the JAX-free
 `chip_smoke.randcone`.
 """
+import functools
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -191,3 +193,93 @@ def test_kernels_walk_many_cone_blocks(cuda_device):
         conic_delta.conic_delta_cuda(anc, co, one, **run),
         conic_delta._conic_delta_compute(anc, co, one, **run),
         ("dy", "dx", "dvy", "dvx", "row"), "K3 many blocks")
+
+
+# -- the host LP driver and K5 ------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _spmv_cases():
+    return dict(chip_smoke.spmv_cases())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f64", "f32"])
+@pytest.mark.parametrize("index", range(5))
+def test_bcsr_kernel_matches_plain_on_card(cuda_device, index, kind):
+    """K5 against its plain version and scipy's f64 product within the
+    tolerance `chip_smoke.SPMV_TOL` states (1e-12 of |A||x| per row in
+    f64, 1e-5 in f32), on each of `chip_smoke.spmv_cases` (the smoke
+    instance's A and A', ragged shapes), with NaN in x's buffer past its
+    end."""
+    label, A = list(_spmv_cases().items())[index]
+    chip_smoke.spmv_parity(torch, cuda_device, label, A, kind)
+
+
+@pytest.mark.cuda
+def test_host_lp_on_card_goes_through_bcsr_kernel(cuda_device):
+    """`solve_lp` on a CSR A solved on the card launches K5 for its
+    products and ends as the CPU solve of the port ends: the same status
+    and IPM count, objectives within 1e-6 relative."""
+    import scipy.sparse as sp
+
+    from abip_tpu_torch import solve_lp
+    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
+    from bench import reference_smoke_lp
+
+    A, b, c = reference_smoke_lp(m=20, n_rand=180, seed=3)
+    A = sp.csr_matrix(A)
+    bcsr_matvec_cuda.launches = 0
+    card = solve_lp(A, b, c, eps=1e-6, device=cuda_device)
+    assert bcsr_matvec_cuda.launches >= 4 * card.admm_iters
+    cpu = solve_lp(A, b, c, eps=1e-6, device="cpu")
+    assert card.status_name == cpu.status_name == "Solved"
+    assert card.ipm_iters == cpu.ipm_iters
+    assert abs(card.pobj - cpu.pobj) <= 1e-6 * abs(cpu.pobj)
+
+
+@pytest.mark.cuda
+def test_entry_points_default_to_the_card(cuda_device):
+    """Called without `device`, the entry points run on the card."""
+    import scipy.sparse as sp
+
+    import abip_tpu_torch
+    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
+    from bench import reference_smoke_lp
+
+    A, b, c = reference_smoke_lp(m=20, n_rand=180, seed=4)
+    ws = abip_tpu_torch.LPWorkspace(sp.csr_matrix(A), b, c)
+    assert ws.device.type == "cuda" and ws.ops.bcsr.data.is_cuda
+    bcsr_matvec_cuda.launches = 0
+    assert abip_tpu_torch.solve_lp(sp.csr_matrix(A), b, c,
+                                   eps=1e-4).status_name == "Solved"
+    assert bcsr_matvec_cuda.launches > 0
+    res = abip_tpu_torch.solve_lp_batch(
+        A[None], b[None], c[None], **dict(chip_smoke.SOLVE_KW,
+                                          qres_period=256))
+    assert res.x.is_cuda and res.status.tolist() == [1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sparse", [False, True])
+def test_host_lp_float32_on_card(cuda_device, sparse):
+    """dtype="float32" on the card, with the caller's TF32 flag on: the
+    driver's dense products stay IEEE f32 (the solve turns TF32 off and
+    restores the flag), and the solve ends within 1e-3 of the f64 one."""
+    import scipy.sparse as sp
+
+    from abip_tpu_torch import solve_lp
+    from bench import reference_smoke_lp
+
+    A, b, c = reference_smoke_lp(m=20, n_rand=180, seed=3)
+    if sparse:
+        A = sp.csr_matrix(A)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        f32 = solve_lp(A, b, c, eps=1e-4, dtype="float32",
+                       device=cuda_device)
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    f64 = solve_lp(A, b, c, eps=1e-4, device=cuda_device)
+    assert f32.status_name == f64.status_name == "Solved"
+    assert abs(f32.pobj - f64.pobj) <= 1e-3 * abs(f64.pobj)

@@ -169,3 +169,79 @@ def test_mu_update_hybrid(mu):
                                  jnp.asarray(d["v"][i]), M, 1e-6, 1000.0,
                                  0.8, 1.1, 0.5) for i in range(B)]
     _close(port, np.stack(ref))
+
+
+# -- one instance (the host LP driver's shapes: (l,) iterates, 0-d scalars)
+
+
+def _one(seed=4):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((M, N))
+    K = 1e-3 * np.eye(M) + A @ A.T
+    h = rng.standard_normal(M + N)
+    return A, K, h, rng.random(L) + 0.1, rng.random(L) + 0.1
+
+
+def _solve_pair(A, K):
+    """The same exact KKT solve in each framework: (rho_y I + AA') z_y =
+    w_y + A w_x, z_x = A' z_y - w_x."""
+    Kinv = np.linalg.inv(K)
+
+    def jsolve(wy, wx, k, warm):
+        zy = jnp.asarray(Kinv) @ (wy + jnp.asarray(A) @ wx)
+        return zy, jnp.asarray(A).T @ zy - wx, jnp.zeros((), jnp.int32)
+
+    def psolve(wy, wx, k, warm):
+        zy = _t(Kinv) @ (wy + _t(A) @ wx)
+        return zy, _t(A).T @ zy - wx, 0
+
+    return jsolve, psolve
+
+
+def test_project_lin_sys_one_instance():
+    A, K, h, u, v = _one()
+    jsolve, psolve = _solve_pair(A, K)
+    g = np.random.default_rng(5).standard_normal(M + N)
+    ref, _ = jhsd.project_lin_sys(jnp.asarray(u), jnp.asarray(v),
+                                  jnp.asarray(h), jnp.asarray(g), 0.7, 1e-3,
+                                  jsolve, 3, M, N)
+    port, its = hsd.project_lin_sys(_t(u), _t(v), _t(h), _t(g),
+                                    torch.tensor(0.7, dtype=torch.float64),
+                                    1e-3, psolve, 3, M, N)
+    assert port.shape == (L,) and its == 0
+    _close(port, ref)
+
+
+@pytest.mark.parametrize("lam", [1e-8, 1e-3, 1.0])
+def test_admm_update_half_one_instance(lam):
+    _, _, _, u, v = _one(6)
+    u_t = np.random.default_rng(7).standard_normal(L)
+    ref = jhsd.admm_update_half(u, v, u_t, lam, M)
+    port = hsd.admm_update_half(_t(u), _t(v), _t(u_t),
+                                torch.tensor(lam, dtype=torch.float64), M)
+    for p, r in zip(port, ref):
+        _close(p, r)
+
+
+def test_residuals_one_instance():
+    """lp_residuals and q_norm_resd on `(l,)` iterates with 0-d scalars
+    give the reference's values."""
+    A, _, _, u, v = _one(8)
+    rng = np.random.default_rng(9)
+    b, c = rng.standard_normal(M), rng.standard_normal(N)
+    pr, dr = rng.random(M) + 0.5, rng.random(N) + 0.5
+    At = _t(A)
+    args = (b, c, pr, dr, 1.3, 2.0, 3.0, M, N)
+    ref = jhsd.lp_residuals(u, v, lambda x: A @ x, lambda y: A.T @ y, *args)
+    port = hsd.lp_residuals(_t(u), _t(v), lambda x: At @ x,
+                            lambda y: At.T @ y, *(_t(a) if isinstance(
+                                a, np.ndarray) else torch.tensor(
+                                a, dtype=torch.float64) for a in args[:7]),
+                            M, N)
+    for p, r in zip(port, ref):
+        assert p.shape == ()
+        _close(p, r)
+    _close(hsd.q_norm_resd(_t(u), _t(v), lambda x: At @ x,
+                           lambda y: At.T @ y, _t(b), _t(c), M, N),
+           jhsd.q_norm_resd(u, v, lambda x: A @ x, lambda y: A.T @ y, b, c,
+                            M, N))

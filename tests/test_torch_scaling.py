@@ -82,3 +82,22 @@ def test_clip_col_guards():
     port = scaling._clip_col(torch.as_tensor(e), 100)
     ref = jscaling._clip_col(jnp.asarray(e), 100)
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-15)
+
+
+@pytest.mark.parametrize("variant", ["default", "scaled", "off"])
+def test_equilibrate_sparse(variant):
+    """The host LP driver's scipy equilibration: the same f64 scipy
+    passes as the reference's, so the scaled matrix and the factors agree
+    to 1e-14."""
+    import scipy.sparse as sp
+
+    A, _, _ = reference_smoke_lp(m=12, n_rand=90, density=0.2, seed=4)
+    kw = _VARIANTS[variant]
+    A_p, sd_p = scaling.equilibrate_sparse(sp.csr_matrix(A), Settings(**kw))
+    A_r, sd_r = jscaling.equilibrate_sparse(sp.csr_matrix(A),
+                                            JSettings(**kw))
+    np.testing.assert_allclose(A_p.toarray(), A_r.toarray(), rtol=1e-14,
+                               atol=1e-15)
+    for p, r in zip(sd_p, sd_r):
+        assert p.dtype == torch.float64
+        np.testing.assert_allclose(p.numpy(), np.asarray(r), rtol=1e-14)
