@@ -1,14 +1,16 @@
 """ABIP in PyTorch: the LP and conic solvers on CUDA.
 
 A port of `abip_tpu` to PyTorch: the host LP driver (`solve_lp`, one LP
-on a dense or scipy sparse A), the batched LP anchored-delta engine
-(`solve_lp_batch`), and the two-phase batched conic path
-(`solve_qcp_batch`: barrier ladder, then the anchored-delta endgame).
-Their hot loops run hand-written CUDA C++ kernels for Hopper
-(`csrc/bcsr_spmv.cu`, `csrc/admm_delta.cu`, `csrc/conic_ladder.cu`,
-`csrc/conic_delta.cu`).  Every entry point runs on the CUDA card unless
-the caller passes `device="cpu"` (or another device); without a visible
-card and no device given, it raises.  Importing this package sets no
+on a dense or scipy sparse A), the batched LP solver with its delta,
+steps, sprint and two-phase sprint2 engines (`solve_lp_batch`), and the
+two-phase batched conic path (`solve_qcp_batch`: barrier ladder or
+one-stage sprints, then the anchored-delta endgame).  Their hot loops
+run hand-written CUDA C++ kernels for Hopper (`csrc/bcsr_spmv.cu`,
+`csrc/admm_delta.cu`, `csrc/admm_sprint.cu`, `csrc/conic_ladder.cu`,
+`csrc/conic_sprint.cu`, `csrc/conic_delta.cu`, and `csrc/barrier_step.cu`
+behind `ops.fused_barrier_step`).  Every entry point runs on the CUDA
+card unless the caller passes `device="cpu"` (or another device);
+without a visible card and no device given, it raises.  Importing this package sets no
 global state.
 
 Quick start::

@@ -1,7 +1,11 @@
-"""Fused conic DR barrier ladder: conic phase 1 in one launch per batch.
+"""Fused conic DR engines: the barrier ladder and the one-stage sprint.
 
-Port of `abip_tpu/ops/conic_pallas.py` (the ladder entry
-`fused_dr_ladder` and what it needs).  Up to T f32 Douglas-Rachford
+Port of `abip_tpu/ops/conic_pallas.py`: the ladder entry
+`fused_dr_ladder` (conic phase 1 in one launch per batch) and the
+sprint entry `fused_dr_sprint_stop` (up to T iterations at one fixed
+barrier, stopping on the inner criterion), and what they need.
+
+The ladder: up to T f32 Douglas-Rachford
 iterations per lane -- projection with the quadratic-formula tau
 (`source/abip.c:186-254`), cone barrier prox (`source/cones.c:130-289`),
 dual update (`source/abip.c:314`) -- across as many barrier stages as
@@ -10,10 +14,12 @@ fit: every `probe` iterations the f32 inner criterion
 (`calc_qcp_residuals`) feed the in-kernel `adjust_barrier` tables
 (`source/abip.c:994-1071`), and the lane stops once mu < mu_stop.
 
-`_dr_ladder_compute` is the plain PyTorch version (CPU tensors, and the
-reference the kernel is held to); `csrc/conic_ladder.cu` is the CUDA
-kernel.  `fused_dr_ladder` takes the plain version on CPU tensors and
-the kernel on CUDA tensors, or raises; it never falls back.
+`_dr_ladder_compute` and `_dr_sprint_compute` are the plain PyTorch
+versions (CPU tensors, and the references the kernels are held to);
+`csrc/conic_ladder.cu` and `csrc/conic_sprint.cu` are the CUDA kernels,
+which share the iteration (`csrc/conic_common.cuh`).  The entries take
+the plain version on CPU tensors and the kernel on CUDA tensors, or
+raise; they never fall back.
 
 Layout: lane axis first, no padding.  Rows are `(B, m)`/`(B, n)` f32,
 `A` is `(B, m, n)`, `Minv` is G^-1 `(B, m, m)` (Woodbury form, with the
@@ -530,6 +536,160 @@ def fused_dr_ladder(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32, D32, E32,
     v = torch.cat([vy, vx, out[:, 1:2]], dim=1)
     return (u, v, out[:, 3].to(torch.int32), out[:, 2], out[:, 4],
             out[:, 5], out[:, 6].to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# sprint: up to T iterations at one fixed barrier
+# ---------------------------------------------------------------------------
+
+# sprint scal slots, the reference's order (`conic_pallas.py:505-506`)
+(C_RHOY, C_RHOX, C_RHOT, C_ACOEF, C_LAM, C_ALPHA, C_TAU, C_KAPPA, C_THRESH,
+ C_K0) = range(10)
+N_SPRINT_SCAL = 10
+# output row: [tau, kappa, err, t_done]
+SPRINT_ROW = 4
+
+
+class DrSprintOperands(NamedTuple):
+    """f32 operands of one sprint launch, lane axis first (the ladder's
+    without D, E)."""
+
+    scal: torch.Tensor    # (B, 10) per-lane scalars, slots C_*
+    A: torch.Tensor       # (B, m, n)
+    Minv: torch.Tensor    # G^-1 (B, m, m) or S^-1 (B, n, n)
+    Hinv: torch.Tensor    # (B, n) Woodbury diagonal (zeros in the primal form)
+    ry: torch.Tensor      # (B, m)
+    rx: torch.Tensor      # (B, n)
+    b: torch.Tensor       # (B, m)
+    c: torch.Tensor       # (B, n)
+    Qd: torch.Tensor      # (B, n)
+    y: torch.Tensor       # (B, m) entry iterate
+    x: torch.Tensor       # (B, n)
+    vy: torch.Tensor      # (B, m)
+    vx: torch.Tensor      # (B, n)
+
+
+def _dr_sprint_compute(op: DrSprintOperands, co: ConeOperands, t_max, *,
+                       probe, woodbury):
+    """The plain PyTorch version of the sprint kernel
+    (`conic_pallas._dr_sprint_compute`).
+
+    Lane b runs trips of `probe` iterations at its fixed barrier lam
+    while `t < t_max[b]` and `err >= thresh`, `err` the f32 inner
+    criterion after each trip; stopped lanes are frozen by mask.
+    Returns (y, x, vy, vx, row) with row `(B, 4)` =
+    [tau, kappa, err, t_done], in the operands' dtype."""
+    _need_ieee(op.A)
+    sc = op.scal
+
+    def col(k):
+        return sc[:, k:k + 1]
+
+    iter_body, err_inner = _make_dr_fns(
+        op, co, col(C_RHOY), col(C_RHOX), col(C_RHOT), col(C_ACOEF),
+        col(C_ALPHA), col(C_K0), woodbury)
+    lam, thresh = col(C_LAM), col(C_THRESH)
+    B, dev = op.A.shape[0], op.A.device
+    t_max = t_max.to(device=dev, dtype=torch.int32).reshape(B, 1)
+    state = (op.y, op.x, op.vy, op.vx, col(C_TAU), col(C_KAPPA))
+    t = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    e = _full(lam, float("inf"))
+    while True:
+        run = (t < t_max) & (e >= thresh)
+        if not bool(run.any()):
+            break
+        new = state
+        for j in range(probe):
+            new = iter_body(lam, t + j, new)
+        state = tuple(torch.where(run, a, s) for a, s in zip(new, state))
+        e = torch.where(run, err_inner(*new), e)
+        t = torch.where(run, t + probe, t)
+    y, x, vy, vx, tau, kappa = state
+    return y, x, vy, vx, torch.cat([tau, kappa, e, t.to(e.dtype)], dim=1)
+
+
+def dr_sprint_cuda(op: DrSprintOperands, co: ConeOperands, t_max, *, probe,
+                   woodbury):
+    """The sprint on the card: one launch of `csrc/conic_sprint.cu` over
+    the lanes.  Same contract as `_dr_sprint_compute`.  Raises on an
+    operand the kernel does not take and on a refused launch; never
+    falls back."""
+    B, m, n = op.A.shape
+    dev = op.A.device
+    if dev.type != "cuda":
+        raise ValueError(f"dr_sprint_cuda needs CUDA tensors; got {dev}")
+    if B < 1 or m < 1 or n < 1 or probe < 1:
+        raise ValueError(f"empty launch: B={B} m={m} n={n} probe={probe}")
+    mk = m if woodbury else n
+    want = {k: (f32, (B, m if k in _LADDER_M else n))
+            for k in DrSprintOperands._fields}
+    want.update(scal=(f32, (B, N_SPRINT_SCAL)), A=(f32, (B, m, n)),
+                Minv=(f32, (B, mk, mk)), t_max=(torch.int32, (B,)))
+    t_max = t_max.to(device=dev, dtype=torch.int32).contiguous()
+    check_operands(list(op._asdict().items()) + [("t_max", t_max)], want, dev)
+    outs = [torch.empty((B, k), dtype=f32, device=dev)
+            for k in (m, n, m, n, SPRINT_ROW)]
+    launch("conic_sprint", list(op) + [t_max] + _cone_kernel_inputs(co, dev),
+           outs, B, m, n, co.start.shape[0], probe, 1.0, woodbury, dev,
+           SPRINT_ROW)
+    dr_sprint_cuda.launches += 1
+    return tuple(outs)
+
+
+dr_sprint_cuda.launches = 0
+
+
+def dr_sprint_operands(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32, rho_y,
+                       rho_x, rho_tau, a_coef, lam, alpha, thresh, u32, v32,
+                       k0) -> DrSprintOperands:
+    """Pack the operands of one sprint launch (`fused_dr_sprint_stop`'s
+    arguments) as `DrSprintOperands`."""
+    B, m, n = A32.shape
+    scal = torch.stack([_per_lane(s, B, A32) for s in (
+        rho_y, rho_x, rho_tau, a_coef, lam, alpha, u32[:, m + n],
+        v32[:, m + n], thresh, k0)], dim=1).to(f32)
+
+    def row(x):
+        return x.to(f32).contiguous()
+
+    return DrSprintOperands(
+        scal=scal, A=A32.to(f32).contiguous(), Minv=Minv32.to(f32).contiguous(),
+        Hinv=row(Hinv32), ry=row(r_vec32[:, :m]), rx=row(r_vec32[:, m:]),
+        b=row(b32), c=row(c32), Qd=row(Qd32), y=row(u32[:, :m]),
+        x=row(u32[:, m:m + n]), vy=row(v32[:, :m]), vx=row(v32[:, m:m + n]))
+
+
+def fused_dr_sprint_stop(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32,
+                         co: ConeOperands, rho_y, rho_x, rho_tau, a_coef,
+                         lam, alpha, thresh, u32, v32, k0, *, T=512, probe=8,
+                         woodbury=False, active=None):
+    """Run up to T f32 conic DR iterations per lane in one launch,
+    stopping within probe-1 iterations of the inner criterion
+    `err < thresh`.
+
+    Matrices `(B, ...)` f32: Minv32 = S^-1 `(B, n, n)` or (woodbury)
+    G^-1 `(B, m, m)` with Hinv32 `(B, n)`; r_vec32 `(B, m + n)` and
+    a_coef the tau-quadratic precompute; Qd32 the diagonal Q (zeros when
+    absent).  Scalars are floats or `(B,)` tensors; u32, v32
+    `(B, m + n + 1)`; k0 the ADMM count before this launch (the first
+    iteration ever takes tau_t = 1).  `active` (`(B,)` bool) gives
+    inactive lanes zero iterations.  Returns (u, v, t_done, err), f32
+    and int32.  CPU tensors take the plain version, CUDA tensors the
+    kernel, or it raises."""
+    B, m, n = A32.shape
+    if A32.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no sprint for device {A32.device}")
+    op = dr_sprint_operands(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32,
+                            rho_y, rho_x, rho_tau, a_coef, lam, alpha, thresh,
+                            u32, v32, k0)
+    t_max = torch.full((B,), T, dtype=torch.int32, device=A32.device)
+    if active is not None:
+        t_max = torch.where(active, t_max, 0).to(torch.int32)
+    run = dr_sprint_cuda if A32.is_cuda else _dr_sprint_compute
+    y, x, vy, vx, out = run(op, co, t_max, probe=probe, woodbury=woodbury)
+    u = torch.cat([y, x, out[:, 0:1]], dim=1)
+    v = torch.cat([vy, vx, out[:, 1:2]], dim=1)
+    return u, v, out[:, 3].to(torch.int32), out[:, 2]
 
 
 def _unpad(x, dims, dtype=np.float32):

@@ -1,7 +1,8 @@
 """Batched conic solver: the two-phase sprint2 path, lanes on one device.
 
 Port of the `engine="sprint2"` path of `abip_tpu/parallel/batched_qcp.py`
-(`phase1="ladder"`, `endgame="delta"`, `compact_period=0`).  Every
+(`phase1="ladder"` or `"sprint"`, `endgame="delta"`,
+`compact_period=0`).  Every
 instance is a lane: a row of `(B, ...)` tensors sharing one `ConeSpec`.
 The outer barrier loop and the chunk loop run on the host; a lane whose
 loop condition is false is frozen by mask, exactly as a vmapped
@@ -13,10 +14,13 @@ Per lane:
 * setup, once (`prepare_conic_batch`, f64): the cone-tied equilibration,
   the Newton-inverse Schur factors (Woodbury form when 2m <= n), and the
   tau-quadratic precompute r_vec, a_coef;
-* phase 1 (`engine="ladder"`): launches of the ladder
-  (`ops.conic_dr.fused_dr_ladder`, kernel K2 on the card) of
+* phase 1, until mu < sprint_mu_switch: `engine="ladder"`, launches of
+  the ladder (`ops.conic_dr.fused_dr_ladder`, kernel K2 on the card) of
   T = max(2048, inner_crit_period) f32 iterations, each followed by one
-  f64 residual check, until mu < sprint_mu_switch;
+  f64 residual check; or `engine="sprint"`, barrier stages of sprint
+  chunks (`ops.conic_dr.fused_dr_sprint_stop`, kernel K4) of up to
+  inner_crit_period f32 iterations at the stage's barrier, each followed
+  by the f64 residual check, with the phase-2 stage rules below;
 * phase 2 (`engine="delta"`), resumed from phase 1's state: barrier
   stages of anchored-delta chunks (`ops.conic_delta.run_conic_delta_chunk`,
   kernel K3 on the card), each chunk followed by the f64 residuals and
@@ -38,7 +42,7 @@ from ..cones import ConeLayout, ConeSpec, cone_operands
 from ..linsys.schur import DenseSchurSolver
 from ..ops.admm_delta import _mv, _rmv
 from ..ops.conic_delta import run_conic_delta_chunk
-from ..ops.conic_dr import fused_dr_ladder
+from ..ops.conic_dr import fused_dr_ladder, fused_dr_sprint_stop
 from ..qcp import conic_defaults
 from ..device import resolve_device
 from ..scaling import equilibrate_conic
@@ -170,8 +174,8 @@ def _device_solve_qcp(P: PreparedConic, cones: ConeSpec, *, engine, eps,
                       max_ipm, max_admm, alpha, rho_y, rho_x, rho_tau, psi,
                       inner_crit_period, probe_period, sprint_mu_switch,
                       mu_stop, init_state) -> ConicDeviceResult:
-    """`_device_solve_qcp` for engine "ladder" or "delta" (precision
-    "mixed", cadence "chunk"), every lane at once."""
+    """`_device_solve_qcp` for engine "ladder", "sprint" or "delta"
+    (precision "mixed", cadence "chunk"), every lane at once."""
     if inner_crit_period < 1 or probe_period < 1:
         raise ValueError("inner_crit_period and probe_period must be >= 1; "
                          f"got {inner_crit_period}, {probe_period}")
@@ -181,8 +185,9 @@ def _device_solve_qcp(P: PreparedConic, cones: ConeSpec, *, engine, eps,
         raise ValueError(
             "engine='delta' is an endgame: pass init_state from a prior "
             "phase (cold start lacks the k=0 tau_t=1 case)")
-    if engine == "ladder" and not (mu_stop and mu_stop >= sprint_mu_switch):
-        raise ValueError("engine='ladder' runs phase-1 style: pass "
+    if engine in ("ladder", "sprint") and not (
+            mu_stop and mu_stop >= sprint_mu_switch):
+        raise ValueError(f"engine={engine!r} runs phase-1 style: pass "
                          "mu_stop >= sprint_mu_switch")
     layout = ConeLayout(cones)
     A, b, c, Qd = P.A, P.b, P.c, P.Q_diag
@@ -269,7 +274,30 @@ def _device_solve_qcp(P: PreparedConic, cones: ConeSpec, *, engine, eps,
                       j=s.j + res_d.t_done, k=k, err_inner=err64, status=st,
                       res=r)
 
-    def delta_body(o: _Outer, alive) -> _Outer:
+    def sprint_chunk(s: _Inner, o: _Outer, act) -> _Inner:
+        """One K4 launch: up to inner_crit_period f32 iterations at the
+        stage's barrier with the in-kernel stop, then the f64
+        residual/status check; the stage criterion is the kernel's f32
+        value (`batched_qcp.py:556-574`)."""
+        u, v, t_done, err = fused_dr_sprint_stop(
+            A32, Minv32, Hinv32, P.r_vec.to(f32), b.to(f32), c.to(f32),
+            Qd32, co, rho_y, rho_x, rho_tau, P.a_coef, o.mu, alpha,
+            o.tol_inner, s.u.to(f32), s.v.to(f32), s.k.to(f32),
+            T=inner_crit_period, probe=probe, woodbury=woodbury, active=act)
+        u, v = u.to(f64), v.to(f64)
+        v_origin = rho * v
+        k = s.k + t_done
+        r = residuals(u, v_origin, s.res)
+        return _Inner(u=u, v=v, v_origin=v_origin, j=s.j + t_done, k=k,
+                      err_inner=err.to(f64),
+                      status=converged(r, (o.i > 0) & (k > 0)), res=r)
+
+    chunk = sprint_chunk if engine == "sprint" else delta_chunk
+
+    def stage_body(o: _Outer, alive) -> _Outer:
+        """One barrier stage of sprint or delta chunks, then
+        `adjust_barrier` with the stage budget, mu floor and stagnation
+        exit (`batched_qcp.py:635-685`)."""
         s = o.inner._replace(
             j=torch.zeros((B,), dtype=i32, device=dev),
             err_inner=torch.full((B,), float("inf"), dtype=f64, device=dev),
@@ -279,7 +307,7 @@ def _device_solve_qcp(P: PreparedConic, cones: ConeSpec, *, engine, eps,
                    & (s.k < kcap) & (s.j < stage_budget))
             if not bool(act.any()):
                 break
-            s = _select(act, delta_chunk(s, o, act), s)
+            s = _select(act, chunk(s, o, act), s)
         r = residuals(s.u, s.v_origin, s.res)
         st = torch.where(s.status != 0, s.status,
                          converged(r, (o.i > 0) & (s.k > 0)))
@@ -328,7 +356,7 @@ def _device_solve_qcp(P: PreparedConic, cones: ConeSpec, *, engine, eps,
             mu=mu_i.to(f64), tol_inner=tol_i.to(f64), i=i_i.to(i32),
             stall=zi)
 
-    body = ladder_body if engine == "ladder" else delta_body
+    body = ladder_body if engine == "ladder" else stage_body
     while True:
         alive = (o.inner.status == 0) & (o.i < max_ipm) & (o.inner.k < kcap)
         if mu_stop > 0.0:
@@ -375,14 +403,14 @@ def _solve(As, bs, cs, Q_diags, *, cones, engine, eps=1e-4, max_ipm=200,
            sprint_mu_switch=1e-3, mu_stop=0.0, init_state=None, k_cap=None,
            prepared=None) -> ConicDeviceResult:
     """One program of the reference's `_solve_qcp_batch_jit`, for engine
-    "ladder" or "delta".  The knobs of the steps engine
+    "ladder", "sprint" or "delta".  The knobs of the steps engine
     (`inner_check_period`, `ir_steps`, `anchor_period`) come with it
     (ROADMAP.md queue 1, item 11); `solver`, which the reference's
     callers pass, does not act on these engines there either."""
-    if engine in ("steps", "sprint"):
+    if engine == "steps":
         raise NotImplementedError(f"engine={engine!r} "
                                   + _NOT_PORTED.format(11))
-    if engine not in ("ladder", "delta"):
+    if engine not in ("ladder", "sprint", "delta"):
         raise ValueError(f"engine must be 'steps', 'sprint', 'ladder', or "
                          f"'delta'; got {engine!r}")
     _check_options(precision, cadence, solver, engine, k_cap, Q_diags)
@@ -406,7 +434,8 @@ def _solve_qcp_batch_twophase(As, bs, cs, Q_diags=None, *,
                               sprint_mu_switch=1e-3, **kw
                               ) -> ConicDeviceResult:
     """Two-phase conic sprint: phase 1 drives every lane with the ladder
-    until its barrier passes `sprint_mu_switch`; phase 2 finishes the
+    (`phase1="ladder"`, K2) or the per-stage sprint (`phase1="sprint"`,
+    K4) until its barrier passes `sprint_mu_switch`; phase 2 finishes the
     unfinished lanes with the anchored-delta endgame."""
     kw.pop("mu_stop", None)
     kw.pop("init_state", None)
@@ -427,9 +456,6 @@ def _solve_qcp_batch_twophase(As, bs, cs, Q_diags=None, *,
     if phase1 not in ("ladder", "sprint"):
         raise ValueError(f"phase1 must be 'ladder' or 'sprint'; "
                          f"got {phase1!r}")
-    if phase1 == "sprint":
-        raise NotImplementedError("phase1='sprint' (kernel K4) "
-                                  + _NOT_PORTED.format(10))
     _check_options(kw.get("precision", "f64"), kw["cadence"], kw["solver"],
                    "sprint2", kw.get("k_cap"), Q_diags)
     # setup ONCE, shared by both phases
@@ -441,7 +467,7 @@ def _solve_qcp_batch_twophase(As, bs, cs, Q_diags=None, *,
             precision=kw.get("precision", "f64"),
             form=kw.get("form", "auto"), normalize=kw.get("normalize", False))
     kw["normalize"] = False
-    r1 = _solve(As, bs, cs, Q_diags, engine="ladder",
+    r1 = _solve(As, bs, cs, Q_diags, engine=phase1,
                 sprint_mu_switch=sprint_mu_switch, mu_stop=sprint_mu_switch,
                 **kw)
     done1 = r1.status != 0
@@ -462,12 +488,13 @@ def solve_qcp_batch(As, bs, cs, Q_diags=None, *, engine="steps", device=None,
     diagonal quadratic terms; numpy arrays or tensors, moved to `device`
     (default: the CUDA card; `device="cpu"` runs on the CPU).  `cones` (a
     `ConeSpec`) is shared by every lane.  engine="sprint2" runs the
-    two-phase path (ladder phase 1, anchored-delta endgame); "ladder"
-    and "delta" run one phase (the delta endgame needs `init_state`).
-    Options of paths not ported yet (engines "steps"/"sprint",
-    `phase1="sprint"`, `endgame="steps"`, `compact_period > 0`, a full
-    Q, `precision="f64"`, `k_cap`) raise `NotImplementedError` naming
-    their ROADMAP.md item."""
+    two-phase path (phase 1 by the ladder or, `phase1="sprint"`, by the
+    per-stage sprint; anchored-delta endgame); "ladder", "sprint" and
+    "delta" run one phase (the first two with `mu_stop`, the delta
+    endgame with `init_state`).  Options of paths not ported yet (engine
+    "steps", `endgame="steps"`, `compact_period > 0`, a full Q,
+    `precision="f64"`, `k_cap`) raise `NotImplementedError` naming their
+    ROADMAP.md item."""
     dev = resolve_device(device)
     As, bs, cs = (_as_f64(x, dev) for x in (As, bs, cs))
     if Q_diags is not None:

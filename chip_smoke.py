@@ -7,10 +7,13 @@ Run from the root of a checkout on a machine with a CUDA card and
 `nvcc`.  It imports no JAX.  Phases, each printing its own lines and its
 duration:
 
-1. build the four kernels from the checkout, one `nvcc` each, side by
-   side: K1 `csrc/admm_delta.cu` (LP delta chunk), K2
-   `csrc/conic_ladder.cu` (conic phase 1), K3 `csrc/conic_delta.cu`
-   (conic delta chunk), K5 `csrc/bcsr_spmv.cu` (BCSR SpMV);
+1. build the seven kernel sources from the checkout, one `nvcc` each,
+   side by side: K1 `csrc/admm_delta.cu` (LP delta chunk), K6 and K7
+   `csrc/admm_sprint.cu` (LP stopping and plain sprint), K2
+   `csrc/conic_ladder.cu` (conic phase 1), K4 `csrc/conic_sprint.cu`
+   (conic one-stage sprint), K3 `csrc/conic_delta.cu` (conic delta
+   chunk), K5 `csrc/bcsr_spmv.cu` (BCSR SpMV), K8
+   `csrc/barrier_step.cu` (fused barrier step);
 2. host LP driver: hold K5 against its plain version and scipy's f64
    product (A and A' of the smoke instance, ragged shapes; f64 and f32);
    solve three fresh smoke LPs (m=1000, n=10000, density 0.1, the shape
@@ -31,7 +34,20 @@ duration:
    `solve_qcp_batch(engine="sprint2")` with the options of
    `tools/conic_bench.py` against the instances' known optima; time
    it, one K2 launch and one K3 chunk against their plain versions, and
-   the f64 pieces; profile one solve.
+   the f64 pieces; profile one solve;
+5. the sprint engines: hold K6 and K7 against their plain version on
+   mid-solve states (the LP shapes of phase 3; T=64 and T=32, then
+   thresholds that stop lanes mid-chunk); solve fresh B=16 smoke
+   batches with `solve_lp_batch` (`SOLVE_KW` with engine "sprint2",
+   sprint_T=32, sprint_mu_switch=1e-4) with the delta endgame (K6 + K1:
+   solved, timed as a median of 3, profiled), the steps endgame, and the
+   sprint engine under cadence "cond" (K7), each against HiGHS; time K6
+   and K7; hold K4 against its plain version (the conic cases of phase
+   4, from the cold start and at k0=64, then mid-chunk stops); solve a
+   fresh dim-1020 batch with `phase1="sprint"` (K4 + K3) against the
+   known optima and time it as a median of 3; hold K8 against its plain
+   version in f32 and f64, including the prox arguments where the
+   reference's guarded form fails; time K4 and K8.
 
 Each main path runs with its kernels' launch counts set to 0 just before
 it and read just after.  Exits nonzero, printing no result, without a
@@ -54,7 +70,14 @@ SOLVE_KW = dict(eps=1e-6, max_ipm=200, max_admm=200_000, solver="inverse",
 B = 16
 PROBE = 8
 # every kernel source of the port, built side by side
-SOURCES = ("admm_delta", "conic_ladder", "conic_delta", "bcsr_spmv")
+SOURCES = ("admm_delta", "admm_sprint", "conic_ladder", "conic_sprint",
+           "conic_delta", "bcsr_spmv", "barrier_step")
+# the LP sprint engines: `bench.py`'s smoke options with the sprint2 knobs
+SPRINT_KW = dict(SOLVE_KW, engine="sprint2", sprint_T=32,
+                 sprint_mu_switch=1e-4)
+# a phase-1 barrier for the LP sprint kernels' parity (they run above the
+# 1e-4 switch)
+SPRINT_LAM = 1e-3
 # Kernel vs plain version: rtol 2e-5 plus 1e-5 of each output's largest
 # magnitude (at least 1).  Both run f32 reductions in different orders;
 # each sits about that far from an f64 run of the same recurrence.
@@ -106,16 +129,18 @@ def smoke_batch(seed0, count=B, **shape):
     return data, tuple(np.stack(x) for x in zip(*data))
 
 
-def mid_solve_state(torch, stacks, dev, steps=200):
-    """The port's f64 setup of a batch and a state advanced by absolute
-    f64 ADMM steps through three barrier stages."""
+def mid_solve_state(torch, stacks, dev, steps=200, sprint=False):
+    """The port's f64 setup of a batch (the delta engine's, or with
+    `sprint` the sprint engine's) and a state advanced by absolute f64
+    ADMM steps through three barrier stages."""
     from abip_tpu_torch import hsd
     from abip_tpu_torch.ops.admm_delta import _mv, _rmv
-    from abip_tpu_torch.parallel.batched import setup_delta
+    from abip_tpu_torch.parallel.batched import setup_delta, setup_steps
 
     As, bs, cs = (torch.as_tensor(x, dtype=torch.float64, device=dev)
                   for x in stacks)
-    S = setup_delta(As, bs, cs)
+    S = (setup_steps(As, bs, cs, sprint=True, solver="inverse") if sprint
+         else setup_delta(As, bs, cs))
     nb, m, n = As.shape
     l = m + n + 1
     rho_y, alpha = 1e-3, 1.8
@@ -235,8 +260,6 @@ def solve(torch, stacks, dev):
 
 
 def phase_main_path(torch, dev):
-    from scipy.optimize import linprog
-
     from abip_tpu_torch.ops.admm_delta import delta_chunk_cuda
     from abip_tpu_torch.utils.timing import wall_s
 
@@ -246,17 +269,29 @@ def phase_main_path(torch, dev):
     launches = delta_chunk_cuda.launches
     status = res.status.cpu().numpy()
     iters = res.admm_iters.cpu().numpy()
-    pobj = res.pobj.cpu().numpy()
     solved = int((status == 1).sum())
     print(f"main path B=16 smoke eps=1e-6 T=1536: solved {solved}/{B}, "
           f"ADMM iterations total {int(iters.sum())} mean {iters.mean():.1f}"
           f", IPM mean {res.ipm_iters.double().mean().item():.1f}, wall "
           f"{sec:.3f} s (first solve, includes warm-up), "
           f"{iters.sum() / sec:.1f} ADMM it/s, K1 launches {launches}")
-    if solved != B:
-        raise AssertionError(f"main path: statuses {status.tolist()}")
+    lp_vs_highs(data, res, "main path")
+    if launches <= 0:
+        raise AssertionError("main path did not launch the kernel")
+    return launches
+
+
+def lp_vs_highs(data, res, label):
+    """Raise unless every lane is Solved, finite and within 1e-5 relative
+    of scipy's HiGHS."""
+    from scipy.optimize import linprog
+
+    status = res.status.cpu().numpy()
+    pobj = res.pobj.cpu().numpy()
+    if (status != 1).any():
+        raise AssertionError(f"{label}: statuses {status.tolist()}")
     if not (np.isfinite(res.x.cpu().numpy()).all() and np.isfinite(pobj).all()):
-        raise AssertionError("main path: non-finite solution")
+        raise AssertionError(f"{label}: non-finite solution")
     worst = 0.0
     for i, (A, b, c) in enumerate(data):
         ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
@@ -265,13 +300,10 @@ def phase_main_path(torch, dev):
         rel = abs(pobj[i] - ref.fun) / max(1.0, abs(ref.fun))
         worst = max(worst, rel)
         if rel > 1e-5:
-            raise AssertionError(f"lane {i}: pobj {pobj[i]} vs HiGHS "
-                                 f"{ref.fun} (rel {rel:.2e})")
-    print(f"main path vs scipy HiGHS: max relative objective gap "
-          f"{worst:.3e} (limit 1e-5)")
-    if launches <= 0:
-        raise AssertionError("main path did not launch the kernel")
-    return launches
+            raise AssertionError(f"{label} lane {i}: pobj {pobj[i]} vs "
+                                 f"HiGHS {ref.fun} (rel {rel:.2e})")
+    print(f"{label} vs scipy HiGHS: {len(data)}/{len(data)} solved, max "
+          f"relative objective gap {worst:.3e} (limit 1e-5)")
 
 
 def phase_timing(torch, dev, card):
@@ -519,12 +551,13 @@ def conic_anchor(torch, P, cones, st, thresh, q_init=float("inf")):
         P.dss.Minv64.float(), _hinv(torch, P).float())
 
 
-def compare_conic(ker, plain, names, label):
+def compare_conic(ker, plain, names, label, amplified=("y", "dy"),
+                  rel_scale=REL_SCALE):
     """Raise unless every kernel output is within the stated tolerance of
-    the plain version's: rtol 2e-5 plus 1e-5 of the output's largest
-    magnitude, that absolute term times 1/rho_y for the free block
-    (y, dy), and ERR_RTOL for the inner criterion (slot 2 of the row).
-    Return the largest absolute difference."""
+    the plain version's: rtol 2e-5 plus `rel_scale` of the output's
+    largest magnitude, that absolute term times 1/rho_y for the conic
+    free block (`amplified`), and ERR_RTOL for the inner criterion (slot
+    2 of the row).  Return the largest absolute difference."""
     worst = 0.0
     for name, k, p in zip(names, ker, plain):
         k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
@@ -532,8 +565,8 @@ def compare_conic(ker, plain, names, label):
             raise AssertionError(f"{label}: kernel {name} is not finite")
         diff = np.abs(k - p)
         worst = max(worst, float(diff.max()))
-        atol = REL_SCALE * max(1.0, float(np.abs(p).max()))
-        if name in ("y", "dy"):
+        atol = rel_scale * max(1.0, float(np.abs(p).max()))
+        if name in amplified:
             atol *= Y_AMPLIFY
         allowed = RTOL * np.abs(p) + atol
         if name == "row":
@@ -634,7 +667,9 @@ def delta_parity(torch, dev, label, case):
           f"max|kernel-plain| {err:.3e} (stated tolerance: ok); vs f64 run: "
           f"kernel {kerr:.3e}, plain {perr:.3e} (kernel at most {ACC_RATIO}x: "
           f"ok)")
-    thresh, t_stop, drop = decisive_thresholds(torch, anc, co, run)
+    thresh, t_stop, drop = decisive_thresholds(
+        torch, lambda tm: _conic_delta_compute(anc, co, tm, **run)[4][:, 2],
+        nb, dev)
     anc = conic_anchor(torch, P, cones, st, thresh)
     t_max = torch.full((nb,), 256, dtype=torch.int32, device=dev)
     tk = conic_delta_cuda(anc, co, t_max, **run)[4][:, 3].int().tolist()
@@ -649,22 +684,19 @@ def delta_parity(torch, dev, label, case):
     return err
 
 
-def decisive_thresholds(torch, anc, co, run, T=64, min_drop=1.02):
-    """Per lane, a threshold that the plain chunk's criterion crosses
-    decisively within T iterations.  The criterion is not monotone, so a
-    threshold just above its value at T may be grazed at an earlier probe
-    by one f32 version and not by another.  Instead take the last probe k
-    where the criterion drops at least 1.1x below its running minimum over
-    the earlier probes (else the largest such drop, at least `min_drop`),
-    and the geometric mean of the two as the threshold.  Returns
-    (thresholds `(B,)`, the plain chunk's t_done with them, the drops)."""
-    from abip_tpu_torch.ops.conic_delta import _conic_delta_compute
-
-    nb = anc.A.shape[0]
+def decisive_thresholds(torch, crit, nb, dev, T=64, min_drop=1.02):
+    """Per lane, a threshold that a plain version's criterion crosses
+    decisively within T iterations; `crit(t_max)` is that criterion of
+    each lane after t_max iterations at threshold 0.  The criterion is
+    not monotone, so a threshold just above its value at T may be grazed
+    at an earlier probe by one f32 version and not by another.  Instead
+    take the last probe k where the criterion drops at least 1.1x below
+    its running minimum over the earlier probes (else the largest such
+    drop, at least `min_drop`), and the geometric mean of the two as the
+    threshold.  Returns (thresholds `(B,)`, the plain version's t_done
+    with them, the drops)."""
     errs = torch.stack([
-        _conic_delta_compute(
-            anc, co, torch.full((nb,), t, dtype=torch.int32,
-                                device=anc.A.device), **run)[4][:, 2].double()
+        crit(torch.full((nb,), t, dtype=torch.int32, device=dev)).double()
         for t in range(PROBE, T + 1, PROBE)], dim=1)
     prev_min = torch.cummin(errs, dim=1).values[:, :-1]
     drop = prev_min / errs[:, 1:]
@@ -700,7 +732,6 @@ def phase_conic_main(torch, dev):
     status = res.status.cpu().numpy()
     admm = res.admm_iters.cpu().numpy()
     ipm = res.ipm_iters.cpu().numpy()
-    pobj = res.pobj.cpu().numpy()
     solved = int((status == 1).sum())
     print(f"conic main path B=16 dim-1020 (m={CONIC_M}, n=1020) eps=1e-6 "
           f"sprint2: solved {solved}/{B}, ADMM iterations total "
@@ -711,19 +742,27 @@ def phase_conic_main(torch, dev):
     print(f"conic per-lane ADMM, JAX package on a CPU: {list(JAX_CPU_ADMM)}")
     print(f"conic per-lane IPM, port on the card: {ipm.tolist()} (JAX on a "
           f"CPU: 10-12)")
-    if solved != B:
-        raise AssertionError(f"conic main path: statuses {status.tolist()}")
-    if not (np.isfinite(res.x.cpu().numpy()).all()
-            and np.isfinite(pobj).all()):
-        raise AssertionError("conic main path: non-finite solution")
-    rel = np.abs(pobj - stars) / np.maximum(1.0, np.abs(stars))
-    print(f"conic main path vs known optima: max relative objective gap "
-          f"{rel.max():.3e} (limit 1e-5)")
-    if rel.max() > 1e-5:
-        raise AssertionError(f"conic objectives off: {rel.tolist()}")
+    conic_vs_optima(res, stars, "conic main path")
     if l2 <= 0 or l3 <= 0:
         raise AssertionError(f"conic main path launched K2 {l2}x, K3 {l3}x")
     return l2, l3
+
+
+def conic_vs_optima(res, stars, label):
+    """Raise unless every lane is Solved, finite and within 1e-5 of its
+    known optimum (relative to max(1, |optimum|))."""
+    status = res.status.cpu().numpy()
+    pobj = res.pobj.cpu().numpy()
+    if (status != 1).any():
+        raise AssertionError(f"{label}: statuses {status.tolist()}")
+    if not (np.isfinite(res.x.cpu().numpy()).all()
+            and np.isfinite(pobj).all()):
+        raise AssertionError(f"{label}: non-finite solution")
+    rel = np.abs(pobj - stars) / np.maximum(1.0, np.abs(stars))
+    print(f"{label} vs known optima: {len(stars)}/{len(stars)} solved, max "
+          f"relative objective gap {rel.max():.3e} (limit 1e-5)")
+    if rel.max() > 1e-5:
+        raise AssertionError(f"{label}: objectives off: {rel.tolist()}")
 
 
 def phase_conic_timing(torch, dev, card):
@@ -816,6 +855,448 @@ def phase_conic_profile(torch, dev):
     profile_solve(torch, lambda: solve_conic(torch, cones, stacks, dev),
                   {"K2": "conic_ladder_kernel", "K3": "conic_delta_kernel"},
                   "one conic solve")
+
+
+# ---------------------------------------------------------------------------
+# the sprint engines: K6, K7 (LP), K4 (conic), K8 (barrier step)
+# ---------------------------------------------------------------------------
+
+def lp_sprint_operands(torch, S, u, v, thresh, lam=SPRINT_LAM):
+    """The operands of one LP sprint launch from the sprint engine's setup
+    `S` and an f64 state, as the solver packs them."""
+    from abip_tpu_torch.ops.admm_sprint import sprint_operands
+
+    return sprint_operands(S.A32, S.Ninv32, S.h, S.g, 1e-3,
+                           1.0 / (S.g_th + 1.0), lam, 1.8, thresh, u, v)
+
+
+LP_CASES = (("smoke B=16 m=50 n=2000", SMOKE, B),
+            ("ragged B=5 m=37 n=411", dict(m=37, n_rand=374), 5))
+# The LP sprints iterate the absolute iterate in f32 (no f64 anchor):
+# two f32 versions of 64 iterations sit up to ~1e-4 of the iterate's
+# largest magnitude apart, each as far from an f64 run
+# (`tests/test_torch_admm_sprint.py`), so their values are held to rtol
+# 2e-5 plus 1e-4 of the scale.  Their criterion qres is a residual of
+# such iterates: at the cold start it is large and two f32 versions
+# agree to ~2%; at a mid-solve state it is near its noise floor (up to 2x
+# apart on the CPU), so it is held to ERR_RTOL at the cold start only.
+LP_SPRINT_REL_SCALE = 1e-4
+LP_COLD_LAM = 0.1
+
+
+def lp_cold_state(torch, S):
+    """The cold-start iterate u = v = (0, 1, 1) of the sprint setup `S`."""
+    nb, m, n = S.A_s.shape
+    u = torch.cat([torch.zeros((nb, m), dtype=torch.float64,
+                               device=S.A_s.device),
+                   torch.ones((nb, n + 1), dtype=torch.float64,
+                              device=S.A_s.device)], dim=1)
+    return u, u.clone()
+
+
+def phase_lp_sprint_parity(torch, dev):
+    """K6 and K7 against their plain version at the smoke shape and a
+    ragged one: at a mid-solve state of the sprint engine's setup (lam =
+    SPRINT_LAM) and at the cold start (lam = LP_COLD_LAM), K6 at T=64 with
+    thresh=0 (equal t_done; the stated tolerance; at most ACC_RATIO
+    times the plain version's distance from an f64 run) and K7 at
+    T=sprint_T=32; then, from the smoke cold start, thresholds that stop
+    lanes mid-chunk.  Returns the largest |kernel - plain| of K6 and of
+    K7."""
+    from abip_tpu_torch.ops.admm_sprint import (SprintOperands,
+                                                _sprint_compute, sprint_cuda,
+                                                sprint_stop_cuda)
+
+    worst6 = worst7 = 0.0
+    tol = dict(amplified=(), rel_scale=LP_SPRINT_REL_SCALE)
+    for label, shape, nb in LP_CASES:
+        _, stacks = smoke_batch(500, nb, **shape)
+        S, u, v = mid_solve_state(torch, stacks, dev, sprint=True)
+        for where, (su, sv), lam in (("mid-solve", (u, v), SPRINT_LAM),
+                                     ("cold", lp_cold_state(torch, S),
+                                      LP_COLD_LAM)):
+            op = lp_sprint_operands(torch, S, su, sv, 0.0, lam=lam)
+            op64 = SprintOperands(*[x.double() for x in op])
+            tag = f"{label} {where} lam={lam}"
+            tm = torch.full((nb,), 64, dtype=torch.int32, device=dev)
+            ker = sprint_stop_cuda(op, tm, PROBE)
+            plain = _sprint_compute(op, tm, PROBE)
+            exact = _sprint_compute(op64, tm, PROBE)
+            torch.cuda.synchronize()
+            if not torch.equal(ker[3][:, 3], plain[3][:, 3]):
+                raise AssertionError(f"K6 {tag}: t_done differs")
+            q_rel = float(((ker[3][:, 2] - plain[3][:, 2]).abs()
+                           / plain[3][:, 2].abs()).max())
+            if where == "mid-solve":   # qres at its noise floor: reported
+                ker, plain, exact = ([*o[:3], o[3][:, :2]]
+                                     for o in (ker, plain, exact))
+            names = ("y", "x", "vx", "row" if where == "cold" else "tau_kappa")
+            err = compare_conic(ker, plain, names, f"K6 {tag}", **tol)
+            kerr, perr = accuracy_vs_f64(ker, plain, exact, f"K6 {tag}")
+            worst6 = max(worst6, err)
+            print(f"parity K6 {tag} T=64: t_done equal; max|kernel-plain| "
+                  f"{err:.3e} (stated tolerance: ok); qres relative "
+                  f"difference {q_rel:.2e}; vs f64 run: kernel {kerr:.3e}, "
+                  f"plain {perr:.3e} (kernel at most {ACC_RATIO}x: ok)")
+            tm = torch.full((nb,), 32, dtype=torch.int32, device=dev)
+            # the plain sprint has no criterion: (y, x, vx, tau, kappa)
+            ker, plain, exact = ([*o[:3], o[3][:, :2]] for o in (
+                sprint_cuda(op, tm), _sprint_compute(op, tm, 0),
+                _sprint_compute(op64, tm, 0)))
+            torch.cuda.synchronize()
+            err = compare_conic(ker, plain, ("y", "x", "vx", "tau_kappa"),
+                                f"K7 {tag}", **tol)
+            kerr, perr = accuracy_vs_f64(ker, plain, exact, f"K7 {tag}")
+            worst7 = max(worst7, err)
+            print(f"parity K7 {tag} T=32: max|kernel-plain| {err:.3e} "
+                  f"(stated tolerance: ok); vs f64 run: kernel {kerr:.3e}, "
+                  f"plain {perr:.3e} (kernel at most {ACC_RATIO}x: ok)")
+        if nb == B:
+            smoke = S
+    S = smoke
+    u, v = lp_cold_state(torch, S)
+    op = lp_sprint_operands(torch, S, u, v, 0.0, lam=LP_COLD_LAM)
+    thresh, t_stop, drop = decisive_thresholds(
+        torch, lambda tm: _sprint_compute(op, tm, PROBE)[3][:, 2], B, dev)
+    op = lp_sprint_operands(torch, S, u, v, thresh, lam=LP_COLD_LAM)
+    tm = torch.full((B,), 256, dtype=torch.int32, device=dev)
+    tk = sprint_stop_cuda(op, tm, PROBE)[3][:, 3].int().tolist()
+    tp = _sprint_compute(op, tm, PROBE)[3][:, 3].int().tolist()
+    if tp != t_stop:
+        raise AssertionError(f"K6 stop case: plain t_done {tp}, planned "
+                             f"{t_stop}")
+    if max(abs(a - b) for a, b in zip(tk, tp)) > PROBE:
+        raise AssertionError(f"K6 stop case: t_done {tk} vs plain {tp}")
+    print(f"parity K6 stop-mid-chunk B=16 cold start T=256: t_done kernel "
+          f"{tk} plain {tp} (within one probe; each threshold splits a drop "
+          f"of at least {min(drop):.3f}x in the plain criterion)")
+    return worst6, worst7
+
+
+def conic_cold_state(torch, P, cones):
+    """The cold-start iterate (u = v) of a prepared batch, f32."""
+    from abip_tpu_torch.cones import ConeLayout
+
+    nb, m, n = P.A.shape
+    x0 = ConeLayout(cones).interior_point(torch.float64, P.A.device)
+    return torch.cat([torch.zeros((nb, m), dtype=torch.float64,
+                                  device=P.A.device), x0.expand(nb, n),
+                      torch.ones((nb, 1), dtype=torch.float64,
+                                 device=P.A.device)], dim=1).float()
+
+
+def conic_sprint_operands(torch, P, u, v, lam, thresh, k0):
+    """The operands of one conic sprint launch, as the solver packs them."""
+    from abip_tpu_torch.ops.conic_dr import dr_sprint_operands
+
+    Qd = P.Q_diag if P.Q_diag is not None else torch.zeros_like(P.c)
+    return dr_sprint_operands(
+        P.A.float(), P.dss.Minv64.float(), _hinv(torch, P).float(),
+        P.r_vec.float(), P.b.float(), P.c.float(), Qd.float(),
+        CONIC_KW["rho_y"], 1.0, 1.0, P.a_coef, lam, 1.8, thresh, u, v, k0)
+
+
+def conic_sprint_parity(torch, dev, label, case):
+    """K4 against its plain version: T=64 at thresh=0 from the cold start
+    (k0 = 0: the first iteration takes tau_t = 1; mu = 1), then 64 more
+    from the plain version's state (k0 = 64, mu = 0.2); equal t_done, the
+    stated tolerance, the accuracy ratio; then thresholds that stop lanes
+    mid-chunk.  Returns the largest |kernel - plain|."""
+    from abip_tpu_torch.cones import cone_operands
+    from abip_tpu_torch.ops.conic_dr import (DrSprintOperands,
+                                             _dr_sprint_compute,
+                                             dr_sprint_cuda)
+
+    cones, stacks, _ = conic_batch(**case)
+    P = conic_prepared(torch, cones, stacks, dev)
+    co = cone_operands(cones, dev)
+    nb = P.A.shape[0]
+    run = dict(probe=PROBE, woodbury=P.dss.form == "woodbury")
+    tm = torch.full((nb,), 64, dtype=torch.int32, device=dev)
+    u = conic_cold_state(torch, P, cones)
+    worst = 0.0
+    for lam, k0, v in ((1.0, 0.0, u), (0.2, 64.0, None)):
+        if v is None:   # continue from the plain version's state
+            y, x, vy, vx, row = plain
+            u = torch.cat([y, x, row[:, :1]], 1)
+            v = torch.cat([vy, vx, row[:, 1:2]], 1)
+        op = conic_sprint_operands(torch, P, u, v, lam, 0.0, k0)
+        ker = dr_sprint_cuda(op, co, tm, **run)
+        plain = _dr_sprint_compute(op, co, tm, **run)
+        exact = _dr_sprint_compute(DrSprintOperands(*[x.double() for x in op]),
+                                   co, tm, **run)
+        torch.cuda.synchronize()
+        if not torch.equal(ker[4][:, 3], plain[4][:, 3]):
+            raise AssertionError(f"K4 {label}: t_done differs")
+        err = compare_conic(ker, plain, ("y", "x", "vy", "vx", "row"),
+                            f"K4 {label}")
+        kerr, perr = accuracy_vs_f64(ker, plain, exact, f"K4 {label}")
+        worst = max(worst, err)
+        print(f"parity K4 {label} {P.dss.form} T=64 k0={k0:.0f} mu={lam}: "
+              f"t_done equal; max|kernel-plain| {err:.3e} (stated tolerance: "
+              f"ok); vs f64 run: kernel {kerr:.3e}, plain {perr:.3e} (kernel "
+              f"at most {ACC_RATIO}x: ok)")
+    u = conic_cold_state(torch, P, cones)
+    op = conic_sprint_operands(torch, P, u, u, 1.0, 0.0, 0.0)
+    thresh, t_stop, drop = decisive_thresholds(
+        torch, lambda t: _dr_sprint_compute(op, co, t, **run)[4][:, 2], nb,
+        dev)
+    op = conic_sprint_operands(torch, P, u, u, 1.0, thresh, 0.0)
+    tm = torch.full((nb,), 256, dtype=torch.int32, device=dev)
+    tk = dr_sprint_cuda(op, co, tm, **run)[4][:, 3].int().tolist()
+    tp = _dr_sprint_compute(op, co, tm, **run)[4][:, 3].int().tolist()
+    if tp != t_stop:
+        raise AssertionError(f"K4 {label}: plain t_done {tp}, planned {t_stop}")
+    if max(abs(a - b) for a, b in zip(tk, tp)) > PROBE:
+        raise AssertionError(f"K4 {label}: t_done {tk} vs plain {tp}")
+    print(f"parity K4 {label} stop-mid-chunk T=256: t_done kernel {tk} plain "
+          f"{tp} (within one probe; each threshold splits a drop of at least "
+          f"{min(drop):.3f}x in the plain criterion)")
+    return worst
+
+
+# K8 against its plain version: f64 within 1e-12 relative, f32 within
+# 1e-6, plus that much of the inputs' largest magnitude absolute (v_new =
+# v + u_new - rel cancels); the prox at the reference guard's fault
+# points within 1e-6 relative of the f64 prox.
+STEP_TOL = {"f32": 1e-6, "f64": 1e-12}
+STEP_FAULT_T = (-1e-20, -1e-15)
+
+
+def phase_barrier_step(torch, dev):
+    """K8 on a 32,000-vector and a ragged 1,237-vector, f32 and f64, with
+    the arguments t = -1e-20 and -1e-15 where the reference's guarded
+    prox fails.  Returns (largest |kernel - plain| in f32, launches)."""
+    from abip_tpu_torch import hsd
+    from abip_tpu_torch.ops.prox import _ref_impl, barrier_step_cuda
+
+    lam, alpha = 1e-4, 1.8
+    barrier_step_cuda.launches = 0
+    worst = 0.0
+    for n in (32_000, 1_237):
+        rng = np.random.default_rng(n)
+        x = [rng.standard_normal(n) for _ in range(3)]
+        x[0][:2] = np.asarray(STEP_FAULT_T) / alpha
+        x[1][:2] = 0.0
+        x[2][:2] = 0.0
+        for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
+            t = [torch.tensor(a, dtype=dt, device=dev) for a in x]
+            ker = barrier_step_cuda(*t, lam, alpha)
+            plain = _ref_impl(*t, lam, alpha)
+            torch.cuda.synchronize()
+            atol = STEP_TOL[kind] * max(np.abs(a).max() for a in x)
+            diff = 0.0
+            for k, p in zip(ker, plain):
+                k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
+                d = np.abs(k - p)
+                if not np.isfinite(k).all() or (
+                        d > STEP_TOL[kind] * np.abs(p) + atol).any():
+                    raise AssertionError(f"K8 n={n} {kind}: |kernel-plain| "
+                                         f"{d.max():.3e}")
+                diff = max(diff, float(d.max()))
+            # the prox argument as the kernel forms it, then the f64 prox
+            t64 = (alpha * t[0][:2].double() + (1.0 - alpha) * t[1][:2].double()
+                   - t[2][:2].double())
+            want = hsd.barrier_prox(t64, lam).cpu().numpy()
+            got = ker[0][:2].double().cpu().numpy()
+            rel = np.abs(got - want) / want
+            if (rel > 1e-6).any():
+                raise AssertionError(f"K8 n={n} {kind}: prox at {STEP_FAULT_T}"
+                                     f" {got.tolist()} vs f64 {want.tolist()}")
+            if kind == "f32":
+                worst = max(worst, diff)
+            print(f"parity K8 n={n} {kind}: max|kernel-plain| {diff:.3e} "
+                  f"(rtol {STEP_TOL[kind]} + that of the inputs' scale: ok); "
+                  f"prox at t={list(STEP_FAULT_T)}: {got.tolist()} vs f64 "
+                  f"{want.tolist()} (rel {rel.max():.1e}, limit 1e-6)")
+    return worst, barrier_step_cuda.launches
+
+
+def solve_sprint(torch, stacks, dev, **kw):
+    from abip_tpu_torch.parallel.batched import solve_lp_batch
+
+    return solve_lp_batch(*stacks, device=dev, **dict(SPRINT_KW, **kw))
+
+
+def counted_solve(torch, fn, kernels):
+    """(seconds, result, launches) of `fn()` with each kernel wrapper's
+    count set to 0 just before and read just after."""
+    from abip_tpu_torch.utils.timing import wall_s
+
+    for k in kernels:
+        k.launches = 0
+    sec, res = wall_s(fn)
+    return sec, res, [k.launches for k in kernels]
+
+
+def phase_lp_sprint_main(torch, dev):
+    """The LP sprint engines on fresh B=16 smoke batches against HiGHS:
+    sprint2 with the delta endgame (K6 + K1; the main path of this
+    slice), sprint2 with the default steps endgame (K6), and the sprint
+    engine under cadence "cond" (K7).  Returns the launches of K6 and K1
+    in the first, and of K7 in the last."""
+    from abip_tpu_torch.ops.admm_delta import delta_chunk_cuda
+    from abip_tpu_torch.ops.admm_sprint import sprint_cuda, sprint_stop_cuda
+
+    runs = (("sprint2+delta", 1100, dict(endgame="delta")),
+            ("sprint2+steps", 1200, dict()),
+            ("sprint cond", 1300, dict(engine="sprint", cadence="cond")))
+    out = {}
+    for label, seed0, kw in runs:
+        data, stacks = smoke_batch(seed0)
+        sec, res, counts = counted_solve(
+            torch, lambda: solve_sprint(torch, stacks, dev, **kw),
+            (sprint_stop_cuda, sprint_cuda, delta_chunk_cuda))
+        iters = res.admm_iters.cpu().numpy()
+        print(f"LP {label} B=16 smoke eps=1e-6: ADMM total {int(iters.sum())} "
+              f"(max lane {int(iters.max())}), IPM mean "
+              f"{res.ipm_iters.double().mean().item():.1f}, wall {sec:.3f} s "
+              f"(first solve), launches K6 {counts[0]}, K7 {counts[1]}, K1 "
+              f"{counts[2]}")
+        lp_vs_highs(data, res, f"LP {label}")
+        out[label] = counts
+    k6, k1 = out["sprint2+delta"][0], out["sprint2+delta"][2]
+    k7 = out["sprint cond"][1]
+    if min(k6, k1, out["sprint2+steps"][0], k7) <= 0:
+        raise AssertionError(f"LP sprint paths missed a kernel: {out}")
+    return k6, k1, k7
+
+
+def phase_lp_sprint_timing(torch, dev, card):
+    """sprint2 + delta: median of 3 fresh batches; K6 (one T=1536 chunk)
+    and K7 (one T=32 sprint) against their plain version, with bounds."""
+    from abip_tpu_torch.ops.admm_sprint import (_sprint_compute, sprint_cuda,
+                                                sprint_stop_cuda)
+    from abip_tpu_torch.utils.timing import cuda_ms, wall_s
+
+    walls = []
+    for seed0 in (2100, 3100, 4100):
+        _, stacks = smoke_batch(seed0)
+        sec, res = wall_s(lambda: solve_sprint(torch, stacks, dev,
+                                               endgame="delta"))
+        its = int(res.admm_iters.sum())
+        walls.append((sec, its))
+        print(f"timing LP sprint2+delta seeds {seed0}+: {sec:.4f} s, {its} "
+              f"ADMM it, solved {int((res.status == 1).sum())}/{B}")
+    sec, its = sorted(walls)[1]
+    print(f"timing LP sprint2+delta median of 3 [{card}]: {sec:.4f} s, "
+          f"{its / sec:.1f} ADMM it/s aggregate, {B / sec:.3f} instances/s")
+    _, stacks = smoke_batch(5000)
+    S, u, v = mid_solve_state(torch, stacks, dev, sprint=True)
+    op = lp_sprint_operands(torch, S, u, v, 0.0)
+    _, m, n = op.A.shape
+    out = {}
+    for name, T, probe, fn, flops in (
+            ("K6", 1536, PROBE, lambda tm: sprint_stop_cuda(op, tm, PROBE),
+             4 * m * n + 2 * m * m + 4 * m * n / PROBE),
+            ("K7", 32, 0, lambda tm: sprint_cuda(op, tm),
+             4 * m * n + 2 * m * m)):
+        tm = torch.full((B,), T, dtype=torch.int32, device=dev)
+        ms = cuda_ms(lambda: fn(tm), iters=5)
+        plain = cuda_ms(lambda: _sprint_compute(op, tm, probe),
+                        iters=1 if T > 100 else 3)
+        outs = fn(tm)
+        bms, by = kernel_bound(list(op) + [tm], outs, outs[3][:, 3], flops)
+        print(f"timing {name} T={T} B=16 m=50 n=2000 [{card}]: kernel "
+              f"{ms:.3f} ms ({ms * 1e3 / T:.2f} us/iteration), plain version "
+              f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
+        out[name] = (ms, plain, bms, by)
+    return out["K6"], out["K7"]
+
+
+def phase_lp_sprint_profile(torch, dev):
+    _, stacks = smoke_batch(6100)
+    profile_solve(torch, lambda: solve_sprint(torch, stacks, dev,
+                                              endgame="delta"),
+                  {"K6": "sprint_kernel", "K1": "delta_chunk_kernel"},
+                  "one LP sprint2+delta solve")
+
+
+def solve_conic_sprint(torch, cones, stacks, dev):
+    from abip_tpu_torch.parallel.batched_qcp import solve_qcp_batch
+
+    return solve_qcp_batch(*stacks, cones=cones, device=dev,
+                           **dict(CONIC_KW, phase1="sprint"))
+
+
+def phase_conic_sprint_main(torch, dev, card):
+    """sprint2 with phase1="sprint" (K4 + K3) on a fresh dim-1020 B=16
+    batch against the known optima, then the median of 3 fresh batches.
+    Returns the launches of K4 and K3 in the first solve."""
+    from abip_tpu_torch.ops.conic_delta import conic_delta_cuda
+    from abip_tpu_torch.ops.conic_dr import dr_sprint_cuda
+
+    from abip_tpu_torch.utils.timing import wall_s
+
+    cones, stacks, stars = conic_batch(8800)
+    sec, res, (l4, l3) = counted_solve(
+        torch, lambda: solve_conic_sprint(torch, cones, stacks, dev),
+        (dr_sprint_cuda, conic_delta_cuda))
+    admm = res.admm_iters.cpu().numpy()
+    print(f"conic sprint2 phase1=sprint B=16 dim-1020: ADMM total "
+          f"{int(admm.sum())} (max lane {int(admm.max())}), IPM "
+          f"{res.ipm_iters.cpu().numpy().tolist()}, wall {sec:.3f} s (first "
+          f"solve), K4 launches {l4}, K3 launches {l3}")
+    conic_vs_optima(res, stars, "conic phase1=sprint")
+    if l4 <= 0 or l3 <= 0:
+        raise AssertionError(f"conic phase1=sprint launched K4 {l4}x, K3 "
+                             f"{l3}x")
+    walls = []
+    for seed0 in (8100, 8200, 8300):
+        cones, stacks, stars = conic_batch(seed0)
+        sec, res = wall_s(lambda: solve_conic_sprint(torch, cones, stacks,
+                                                     dev))
+        its = int(res.admm_iters.sum())
+        walls.append((sec, its))
+        print(f"timing conic phase1=sprint seeds {seed0}+: {sec:.4f} s, "
+              f"{its} ADMM it (max lane {int(res.admm_iters.max())}), solved "
+              f"{int((res.status == 1).sum())}/{B}")
+    sec, its = sorted(walls)[1]
+    print(f"timing conic phase1=sprint median of 3 [{card}]: {sec:.4f} s, "
+          f"{its / sec:.1f} ADMM it/s aggregate, {B / sec:.3f} instances/s")
+    return l4, l3
+
+
+def phase_sprint_kernel_timing(torch, dev, card):
+    """K4 (one T=512 chunk at dim-1020 B=16 from the cold start) and K8
+    (32,000 elements, f32 and f64) against their plain versions, with
+    bounds.  Returns the K4 and the f32 K8 tuples."""
+    from abip_tpu_torch.cones import cone_operands
+    from abip_tpu_torch.ops.conic_dr import _dr_sprint_compute, dr_sprint_cuda
+    from abip_tpu_torch.ops.prox import _ref_impl, barrier_step_cuda
+    from abip_tpu_torch.utils.timing import cuda_ms, queued_ms
+
+    cones, stacks, _ = conic_batch(8600)
+    P = conic_prepared(torch, cones, stacks, dev)
+    co = cone_operands(cones, dev)
+    u = conic_cold_state(torch, P, cones)
+    op = conic_sprint_operands(torch, P, u, u, 1.0, 0.0, 0.0)
+    tm = torch.full((B,), 512, dtype=torch.int32, device=dev)
+    run = dict(probe=PROBE, woodbury=P.dss.form == "woodbury")
+    ms = cuda_ms(lambda: dr_sprint_cuda(op, co, tm, **run), iters=5)
+    plain = cuda_ms(lambda: _dr_sprint_compute(op, co, tm, **run), iters=1)
+    outs = dr_sprint_cuda(op, co, tm, **run)
+    # Woodbury form, per iteration four A passes and one G^-1 pass; per
+    # trip of PROBE iterations two more A passes (the criterion)
+    m, n = op.A.shape[1:]
+    bms, by = kernel_bound(list(op) + list(co) + [tm], outs, outs[4][:, 3],
+                           8 * m * n + 2 * m * m + 4 * m * n / PROBE)
+    print(f"timing K4 chunk T=512 B=16 dim-1020 [{card}]: kernel {ms:.3f} ms "
+          f"({ms * 1e3 / 512:.2f} us/iteration), plain version {plain:.3f} "
+          f"ms, bound {bms:.4f} ms ({by})")
+    k4 = (ms, plain, bms, by)
+    k8 = None
+    for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        x = [torch.randn(32_000, dtype=dt, device=dev) for _ in range(3)]
+        ms = queued_ms(lambda: barrier_step_cuda(*x, 1e-4, 1.8))
+        plain = queued_ms(lambda: _ref_impl(*x, 1e-4, 1.8))
+        nbytes = 5 * x[0].numel() * x[0].element_size()
+        bms, by = bound_ms(nbytes, 12.0 * x[0].numel(), kind)
+        print(f"timing K8 n=32000 {kind} [{card}]: kernel {ms * 1e3:.2f} us, "
+              f"plain {plain * 1e3:.2f} us, bound {bms * 1e3:.3f} us ({by})")
+        if k8 is None:
+            k8 = (ms, plain, bms, by)
+    return k4, k8
 
 
 # ---------------------------------------------------------------------------
@@ -1143,6 +1624,20 @@ def main():
                                      torch, dev)
     k2, k3 = phase("conic timing", phase_conic_timing, torch, dev, card)
     phase("conic profile", phase_conic_profile, torch, dev)
+
+    k6_err, k7_err = phase("K6/K7 parity", phase_lp_sprint_parity, torch, dev)
+    k6_launches, _, k7_launches = phase(
+        "LP sprint main paths", phase_lp_sprint_main, torch, dev)
+    k6, k7 = phase("LP sprint timing", phase_lp_sprint_timing, torch, dev,
+                   card)
+    phase("LP sprint profile", phase_lp_sprint_profile, torch, dev)
+    k4_err = phase("K4 parity", lambda: max(
+        conic_sprint_parity(torch, dev, *c) for c in CONIC_CASES))
+    k4_launches, _ = phase("conic phase1=sprint main path",
+                           phase_conic_sprint_main, torch, dev, card)
+    k8_err, k8_launches = phase("K8 parity", phase_barrier_step, torch, dev)
+    k4, k8 = phase("K4/K8 timing", phase_sprint_kernel_timing, torch, dev,
+                   card)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, err, times, library=None):
@@ -1160,9 +1655,17 @@ def main():
               "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2),
         entry("conic_delta_kernel", "conic_delta.cu",
               "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3),
+        entry("conic_sprint_kernel", "conic_sprint.cu",
+              "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4),
         entry("bcsr_spmv_kernel", "bcsr_spmv.cu",
               "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,
-              (k5[0], k5[1], k5[3], k5[4]), library=k5[2])]}))
+              (k5[0], k5[1], k5[3], k5[4]), library=k5[2]),
+        entry("sprint_kernel<true>", "admm_sprint.cu",
+              "abip_tpu/ops/admm_pallas.py:327", k6_launches, k6_err, k6),
+        entry("sprint_kernel<false>", "admm_sprint.cu",
+              "abip_tpu/ops/admm_pallas.py:113", k7_launches, k7_err, k7),
+        entry("barrier_step_kernel", "barrier_step.cu",
+              "abip_tpu/ops/prox_pallas.py:42", k8_launches, k8_err, k8)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -137,10 +137,7 @@ def test_pad_instances_and_suite():
         assert abs(o["pobj"] - ref.fun) < 1e-5 * (1 + abs(ref.fun))
 
 
-@pytest.mark.parametrize("opts", [
-    dict(engine="steps"), dict(engine="sprint"), dict(engine="sprint2"),
-    dict(precision="f64"), dict(cadence="cond"),
-    dict(init_state=(0,) * 6), dict(k_cap=10), dict(mesh=object())])
+@pytest.mark.parametrize("opts", [dict(mesh=object())])
 def test_unported_options_raise(opts):
     """Options of paths this port does not run raise and name their
     ROADMAP item; none falls back to another engine."""
@@ -148,6 +145,35 @@ def test_unported_options_raise(opts):
     A, b, c = random_lp(np.random.default_rng(0), m=3, n=6)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         batched.solve_lp_batch(A[None], b[None], c[None], **DEV, **kw)
+
+
+@pytest.mark.parametrize("opts,status", [
+    (dict(engine="steps"), 1), (dict(engine="sprint"), 1),
+    (dict(engine="sprint2"), 1), (dict(precision="f64"), 1),
+    (dict(k_cap=10), 0)])
+def test_engines_and_resume_options_run(opts, status):
+    """The engines and options of the reference's batched driver run
+    from the delta engine's options (parity with the reference:
+    `tests/test_torch_batched_sprint.py`); k_cap stops the solve at its
+    cap with status 0."""
+    A, b, c = random_lp(np.random.default_rng(0), m=3, n=6)
+    r = batched.solve_lp_batch(A[None], b[None], c[None], **DEV,
+                               **dict(KW, **opts))
+    assert r.status.tolist() == [status]
+    if status == 0:
+        assert 10 <= int(r.admm_iters[0]) < 10 + KW["qres_period"]
+
+
+def test_option_checks_follow_the_reference():
+    """The reference's `ValueError`s: the delta engine needs cadence
+    "chunk", the sprint engine precision "mixed"."""
+    A, b, c = random_lp(np.random.default_rng(0), m=3, n=6)
+    with pytest.raises(ValueError, match="cadence='chunk'"):
+        batched.solve_lp_batch(A[None], b[None], c[None], **DEV,
+                               **dict(KW, cadence="cond"))
+    with pytest.raises(ValueError, match="precision='mixed'"):
+        batched.solve_lp_batch(A[None], b[None], c[None], **DEV,
+                               **dict(KW, engine="sprint", precision="f64"))
 
 
 def test_lane_state_from_numpy():

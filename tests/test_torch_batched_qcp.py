@@ -128,9 +128,8 @@ def test_cold_delta_start_is_refused():
 
 
 @pytest.mark.parametrize("opts", [
-    dict(engine="steps"), dict(engine="sprint"), dict(phase1="sprint"),
-    dict(endgame="steps"), dict(compact_period=64), dict(precision="f64"),
-    dict(full_q=True)])
+    dict(engine="steps"), dict(endgame="steps"), dict(compact_period=64),
+    dict(precision="f64"), dict(full_q=True)])
 def test_unported_options_raise(opts):
     """Options of paths this port does not run raise and name their
     ROADMAP item; none falls back to another path."""
@@ -168,7 +167,9 @@ def test_importing_the_port_leaves_jax_out():
             "abip_tpu_torch.conic_ops, abip_tpu_torch.qcp, "
             "abip_tpu_torch.scaling, abip_tpu_torch.linsys.schur, "
             "abip_tpu_torch.ops.conic_dr, abip_tpu_torch.ops.conic_delta, "
-            "abip_tpu_torch.ops.build, abip_tpu_torch.parallel.batched_qcp; "
+            "abip_tpu_torch.ops.build, abip_tpu_torch.parallel.batched_qcp, "
+            "abip_tpu_torch.ops.admm_sprint, abip_tpu_torch.ops.prox, "
+            "abip_tpu_torch.parallel.batched; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('abip_tpu.') or "
             "m == 'abip_tpu']; print(bad); sys.exit(1 if bad else 0)")

@@ -43,10 +43,12 @@ def test_a_new_header_changes_the_key(csrc):
 def test_nothing_builds_at_import():
     """Importing the build module and the kernel wrappers neither runs
     nvcc nor loads a library: `load` is only called at first launch."""
-    from abip_tpu_torch.ops import conic_dr
+    from abip_tpu_torch.ops import admm_sprint, conic_dr, prox
 
     assert build.load.cache_info().currsize == 0
     assert conic_dr.kernel_lib.cache_info().currsize == 0
+    assert admm_sprint._kernel_lib.cache_info().currsize == 0
+    assert prox._kernel_lib.cache_info().currsize == 0
 
 
 def test_package_data_ships_every_kernel_source():

@@ -6,12 +6,13 @@ runs on a machine that has none, from the root of a checkout:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-K1 (LP delta chunk): anchors from the port's own f64 setup of
-numpy-seeded smoke LPs, advanced by absolute f64 ADMM steps
-(`chip_smoke.mid_solve_state`).  K2 (conic ladder) and K3 (conic delta
-chunk): the cases and tolerances of `chip_smoke.ladder_parity` and
-`chip_smoke.delta_parity`, on instances of the JAX-free
-`chip_smoke.randcone`.
+K1 (LP delta chunk), K6 and K7 (LP sprints): anchors and states from
+the port's own f64 setup of numpy-seeded smoke LPs, advanced by absolute
+f64 ADMM steps (`chip_smoke.mid_solve_state`).  K2 (conic ladder), K3
+(conic delta chunk) and K4 (conic sprint): the cases and tolerances of
+`chip_smoke.ladder_parity`, `chip_smoke.delta_parity` and
+`chip_smoke.conic_sprint_parity`, on instances of the JAX-free
+`chip_smoke.randcone`.  K8 (barrier step): `chip_smoke.phase_barrier_step`.
 """
 import functools
 
@@ -283,3 +284,81 @@ def test_host_lp_float32_on_card(cuda_device, sparse):
     f64 = solve_lp(A, b, c, eps=1e-4, device=cuda_device)
     assert f32.status_name == f64.status_name == "Solved"
     assert abs(f32.pobj - f64.pobj) <= 1e-3 * abs(f64.pobj)
+
+
+# -- the sprint engines: K6, K7, K4, K8 ---------------------------------------
+
+@pytest.mark.cuda
+def test_lp_sprint_kernels_match_plain_on_card(cuda_device):
+    """K6 and K7 against their plain version at the smoke shape and a
+    ragged one (`chip_smoke.phase_lp_sprint_parity`: equal t_done, the
+    stated tolerance, the accuracy ratio, lanes stopped mid-chunk)."""
+    chip_smoke.phase_lp_sprint_parity(torch, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,case", CONIC_CASES, ids=CASE_IDS)
+def test_conic_sprint_kernel_matches_plain_on_card(cuda_device, label, case):
+    """K4 from the cold start and at k0 = 64, then lanes stopped
+    mid-chunk (`chip_smoke.conic_sprint_parity`)."""
+    chip_smoke.conic_sprint_parity(torch, cuda_device, label, case)
+
+
+@pytest.mark.cuda
+def test_barrier_step_kernel_matches_plain_on_card(cuda_device):
+    """K8 in f32 and f64 on a 32,000-vector and a ragged one, and the
+    prox at the reference guard's fault points within 1e-6 of the f64
+    prox (`chip_smoke.phase_barrier_step`)."""
+    _, launches = chip_smoke.phase_barrier_step(torch, cuda_device)
+    assert launches == 4
+
+
+@pytest.mark.cuda
+def test_sprint_kernels_refuse_shapes_beyond_shared_memory(cuda_device):
+    """n=60,000 needs more shared memory per block than the card has:
+    the LP sprint wrappers raise instead of launching."""
+    from abip_tpu_torch.ops import admm_sprint
+
+    B, m, n = 1, 1, 60_000
+    z = {k: torch.zeros((B, m if k in admm_sprint._M_FIELDS else n),
+                        device=cuda_device)
+         for k in admm_sprint.SprintOperands._fields}
+    z.update(scal=torch.zeros((B, admm_sprint.N_SCAL), device=cuda_device),
+             A=torch.zeros((B, m, n), device=cuda_device),
+             Ninv=torch.zeros((B, m, m), device=cuda_device))
+    op = admm_sprint.SprintOperands(**z)
+    one = torch.ones((B,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_sprint.sprint_stop_cuda(op, one, 8)
+    with pytest.raises(ValueError, match="shared memory"):
+        admm_sprint.sprint_cuda(op, one)
+
+
+@pytest.mark.cuda
+def test_sprint_solves_on_card_go_through_their_kernels(cuda_device):
+    """Small batches solved on the card: LP sprint2 + delta launches K6
+    and K1, the sprint engine under cadence "cond" K7, conic
+    phase1="sprint" K4 and K3; every lane within 1e-5 of HiGHS or 2e-5
+    of its known optimum."""
+    from abip_tpu_torch.ops.admm_sprint import sprint_cuda, sprint_stop_cuda
+    from abip_tpu_torch.ops.conic_dr import dr_sprint_cuda
+
+    data, stacks = chip_smoke.smoke_batch(810, 3, m=20, n_rand=180)
+    for kw, kernel in ((dict(endgame="delta"), sprint_stop_cuda),
+                       (dict(engine="sprint", cadence="cond"), sprint_cuda)):
+        kernel.launches = 0
+        delta.delta_chunk_cuda.launches = 0
+        res = chip_smoke.solve_sprint(torch, stacks, cuda_device,
+                                      **dict(kw, qres_period=256))
+        assert kernel.launches > 0
+        assert (delta.delta_chunk_cuda.launches > 0) == ("endgame" in kw)
+        chip_smoke.lp_vs_highs(data, res, str(kw))
+    cones, stacks, stars = chip_smoke.conic_batch(
+        308, count=4, spec=chip_smoke.SMALL_SPEC, m=7)
+    dr_sprint_cuda.launches = 0
+    conic_delta.conic_delta_cuda.launches = 0
+    res = chip_smoke.solve_conic_sprint(torch, cones, stacks, cuda_device)
+    assert dr_sprint_cuda.launches > 0
+    assert conic_delta.conic_delta_cuda.launches > 0
+    assert res.status.tolist() == [1, 1, 1, 1]
+    assert abs(res.pobj.cpu().numpy() - stars).max() < 2e-5
