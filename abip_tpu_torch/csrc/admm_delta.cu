@@ -1,4 +1,5 @@
-// Anchored-delta LP ADMM chunk for Hopper (sm_90a), one thread block per lane.
+// Anchored-delta LP ADMM chunk for Hopper (sm_90a), one thread-block
+// cluster per lane.
 //
 // Replaces the TPU kernel `_delta_kernel_batched` of
 // `abip_tpu/ops/admm_delta.py` (Pallas, grid over lanes).  It computes what
@@ -7,32 +8,49 @@
 // delta-frame inner criterion probed every `probe` iterations on the current
 // and the averaged iterate, and each lane stopping on its own threshold.
 //
-// Layout.  Block b owns lane b.  Thread `tid` owns the x-side coordinates
-// j = tid, tid + 1024, ...; their deltas and delta sums (dx, dvx, dsx, dsvx)
-// live in the output buffers and are only ever touched by their owner, so no
-// thread reads another's x-state.  The m-length state (dy, dsy) and the
-// scratch vectors live in shared memory, together with one n-length vector
-// (the x-side operand of the row dots).  A (m x n) and Ninv (m x m) stay in
-// device memory and are read through L2: a lane's A is 400 KB at the smoke
-// shape (m=50, n=2000), beyond the 227 KB of shared memory a block can have,
-// while all 16 lanes' A (6.4 MB) sit in the 50 MB L2.
+// Layout.  Lane b is cluster b of C CTAs (launched with cudaLaunchKernelEx
+// and a cluster dimension; C from `delta_launch_plan` in the wrapper).  CTA r
+// owns the columns [r nc, (r+1) nc), nc = ceil(n / C) rounded up to a
+// multiple of 4 (its resident slices are zero-padded to nc columns, so
+// that the row dots read them as 16-byte vectors).  In the resident form
+// (kRes) it holds, for the whole launch, in shared memory: its column slice
+// of A (m x nc), Ninv (transposed, so that one thread walks one row), its
+// slices of the x-side operands and of the x-side state (dx, dvx, dsx,
+// dsvx), loaded once with cp.async and written back once at the end, and
+// the m-side state, replicated in every CTA.  Where that does not fit, the
+// streaming form (!kRes) is the same code reading A, Ninv and the x-side
+// operands through L2 and keeping the state in global memory (the outputs,
+// and a per-CTA workspace for the m-side); its shared memory (the exchange
+// buffers, 4 m floats, and one x slice) stays within what one block per
+// lane needed (n + 5 m floats).
 //
-// Per iteration A is read twice: A*dwx as one warp per row (coalesced, the
-// operand from shared memory) and A'*dz_y as one thread per column.  A probe
-// reads A four more times.  These are products with one vector, so there is
-// no tensor-core work.  Block-wide sums go through warp shuffles and shared
-// memory, and every thread folds the per-warp partials in the same order, so
-// all threads hold bit-identical sums and take the same stop decision.
+// One cluster exchange per iteration.  The step needs three sums over the
+// lane's columns: <dqx, gx> for the rank-1 weight, A dwx, and <dz_x, hx> for
+// tau.  With dqx = u - drtau hx and dwx = -(dqx - dcoef hx), u = dx + dvx:
+//   <dqx, gx> = <u, gx> - drtau <hx, gx>,
+//   A dwx     = -A u + (drtau + dcoef) A hx,
+// and u is known at the end of the previous iteration.  So one exchange at
+// the end of each iteration carries A u (a partial m-vector from each CTA's
+// columns), <u, gx> and <dz_x, hx>; A hx and <hx, gx> are exchanged once per
+// launch.  Ninv drhs (m^2 MACs) is computed by every CTA; A' dz_y is local
+// to each CTA's columns.  A probe evaluates the current and the averaged
+// criterion together, through one more exchange.  An exchange writes the
+// partials into this CTA's shared memory (the last warp folds the scalar
+// sums while the others form A u), passes one cluster barrier and reads the
+// C partials through distributed shared memory in rank order, all in one
+// round of remote loads (cluster_common.cuh), so every CTA holds
+// bit-identical sums and takes the same stop decision.  The exchange
+// buffers are double-buffered by the exchange's parity: a buffer is written
+// again only after the next exchange's barrier, which every CTA passes
+// after its reads.  Products with one vector: no tensor-core work.
 //
-// What bounds it on this card: the A passes through L2, about 2.5 per
-// iteration (~1 MB per lane at the smoke shape) into ONE SM per lane, and
-// occupancy, since B=16 lanes busy only 16 of the H100's 132 SMs.  At the
-// smoke shape an iteration takes ~22 us, ~45 GB/s into the SM.  1024 threads
-// per block hide L2 latency better than 512 (1.5x); more loads in flight per
-// thread, `__restrict__`, or the x-state in shared memory gained nothing
-// further worth keeping.  Splitting a lane's A across a thread-block
-// cluster's distributed shared memory, so that it is read from SMEM instead
-// of L2 and more SMs work per lane, is later work.
+// What bounds it on this card: latency, not bytes.  Each iteration is a
+// chain of dependent steps (drhs, Ninv drhs, the column dots and the prox,
+// the row dots, the cluster barrier, the remote reads, the tau prox), each
+// separated by a barrier, with A read twice from shared memory.  Its
+// largest fixed pieces are the cluster barrier's arrive, the round of
+// remote loads and the IEEE divisions of the two prox chains (PERF.md has
+// the cycles of each piece, measured on an H100).
 //
 // Numerics: plain IEEE f32 `sqrtf` and `/` (build without -use_fast_math);
 // the cancellation-free prox delta is only accurate with correctly rounded
@@ -40,11 +58,18 @@
 
 #include <cuda_runtime.h>
 
+#include "cluster_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRed = 7;  // widest block reduction: the probe's 7 sums
+constexpr int kRed = 12;   // widest block reduction: a probe's 2 x 6 x-sums
+constexpr int kSlot = 16;  // floats of one scalar exchange slot
+constexpr int kRowsPerWarp = 4;  // rows a warp dots at once
+constexpr int kXOps = 13;  // x-side operand slices held in shared memory
+constexpr int kXState = 4; // dx, dvx, dsx, dsvx
+constexpr int kMVecs = 5;  // m-side vectors outside the exchange buffers
 
 // per-lane scalar slots, the order of the reference's packed scalar row
 enum {
@@ -66,8 +91,25 @@ struct Args {
   const float* in[I_TMAX];
   const int* t_max;
   float* out[O_COUNT];
-  int m, n, probe;
+  float* work;  // streaming form: kMVecs m-vectors per CTA
+  int m, n, nc, probe;
 };
+
+// Columns a CTA owns: ceil(n / C) rounded up to a multiple of 4, so that
+// every row of a resident slice starts 16-byte aligned.
+inline int cols_per_cta(int n, int C) { return ((n + C - 1) / C + 3) / 4 * 4; }
+
+// Shared memory of one CTA, in floats: the reduction scratch, the scalar
+// slots and the exchanged sums, one x slice (the row dots' operand), two
+// exchange buffers of 2 m, and in the resident form A's slice, the x-side
+// slices, Ninv and the m-side vectors (the 16-byte aligned pieces first).
+inline long long smem_floats(int m, int nc, bool res) {
+  long long f = (long long)kWarps * kRed + 3 * kSlot + nc + 4LL * m;
+  if (res)
+    f += (long long)m * nc + (long long)(kXOps + kXState) * nc +
+         (long long)m * m + (long long)kMVecs * m;
+  return f;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -75,7 +117,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sums each v[k] over the block; every thread gets the same bits.
+// Sums each v[k] over the CTA; every thread gets the same bits.  `red` is
+// read after the call returns, so a CTA barrier must pass before the next
+// block_sum writes it (every caller's next one is behind a __syncthreads or
+// a cluster barrier).
 template <int K>
 __device__ __forceinline__ void block_sum(float (&v)[K], float* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -89,26 +134,98 @@ __device__ __forceinline__ void block_sum(float (&v)[K], float* red) {
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     float s = 0.f;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w * K + k];
     v[k] = s;
   }
-  __syncthreads();
 }
 
-// sum_j Mi[j] * w[j] over one row, by one warp; all lanes get the sum
-__device__ __forceinline__ float row_dot(const float* __restrict__ Mi,
-                                         const float* w, int n, int lane) {
-  float acc = 0.f;
-  for (int j = lane; j < n; j += 32) acc += __ldg(Mi + j) * w[j];
-  return warp_sum(acc);
+// sum_i M[i, j] y[i] down column j of M (row stride ld), i < m: four
+// partial sums over i mod 4, so that four loads and FMAs are in flight,
+// folded in a fixed order.
+__device__ __forceinline__ float col_dot(const float* M, int ld,
+                                         const float* y, int m, int j) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  int i = 0;
+  for (; i + 4 <= m; i += 4) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      acc[k] += M[(size_t)(i + k) * ld + j] * y[i + k];
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    if (i + k < m) acc[k] += M[(size_t)(i + k) * ld + j] * y[i + k];
+  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
 }
 
-// sum_i M[i, j] * y[i] down one column, by one thread
-__device__ __forceinline__ float col_dot(const float* __restrict__ M,
-                                         const float* y, int m, int n, int j) {
-  float acc = 0.f;
-  for (int i = 0; i < m; ++i) acc += __ldg(M + (size_t)i * n + j) * y[i];
-  return acc;
+__device__ __forceinline__ float dot4(float4 a, float4 w) {
+  return (a.x * w.x + a.y * w.y) + (a.z * w.z + a.w * w.w);
+}
+
+// out0[i] = sum_j M[i, j] w0[j] (and out1 with w1 where kTwo) for the rows
+// i < rows, j < len; kRowsPerWarp rows per warp at a time, one pass over
+// the columns for all of them.  M has row stride ld.  kVec: M, w0 and w1
+// are 16-byte aligned, ld and len multiples of 4, and each lane takes four
+// columns a load.
+template <bool kTwo, bool kVec>
+__device__ __forceinline__ void rows_dot(const float* M, int ld,
+                                         const float* w0, const float* w1,
+                                         int len, int rows, float* out0,
+                                         float* out1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i0 = warp * kRowsPerWarp; i0 < rows; i0 += kWarps * kRowsPerWarp) {
+    float a0[kRowsPerWarp], a1[kRowsPerWarp];
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) a0[r] = a1[r] = 0.f;
+    if (kVec) {
+      for (int j = lane; j < len / 4; j += 32) {
+        const float4 u = reinterpret_cast<const float4*>(w0)[j];
+        const float4 v = kTwo ? reinterpret_cast<const float4*>(w1)[j] : u;
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          if (i0 + r < rows) {
+            const float4 a =
+                reinterpret_cast<const float4*>(M + (size_t)(i0 + r) * ld)[j];
+            a0[r] += dot4(a, u);
+            if (kTwo) a1[r] += dot4(a, v);
+          }
+        }
+      }
+    } else {
+      for (int j = lane; j < len; j += 32) {
+        const float u = w0[j];
+        const float v = kTwo ? w1[j] : 0.f;
+#pragma unroll
+        for (int r = 0; r < kRowsPerWarp; ++r) {
+          if (i0 + r < rows) {
+            const float a = M[(size_t)(i0 + r) * ld + j];
+            a0[r] += a * u;
+            if (kTwo) a1[r] += a * v;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRowsPerWarp; ++r) {
+      a0[r] = warp_sum(a0[r]);
+      if (kTwo) a1[r] = warp_sum(a1[r]);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int r = 0; r < kRowsPerWarp; ++r) {
+        if (i0 + r < rows) {
+          out0[i0 + r] = a0[r];
+          if (kTwo) out1[i0 + r] = a1[r];
+        }
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
 }
 
 // prox(t0 + dt, lam) - prox(t0, lam) without cancellation; s0 is
@@ -122,47 +239,72 @@ __device__ __forceinline__ float prox_delta(float dt, float t0, float s0,
   return 2.0f * lam * (dt - ds) / ((s - t) * (s0 - t0));
 }
 
-__global__ void __launch_bounds__(kThreads)
-delta_chunk_kernel(Args a) {
-  extern __shared__ float smem[];
-  const int m = a.m, n = a.n, probe = a.probe;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t b = blockIdx.x;
+template <bool kRes>
+__global__ void __launch_bounds__(kThreads, 1)
+delta_cluster_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int m = a.m, n = a.n, nc = a.nc, probe = a.probe;
+  const int c0 = rank * nc;
+  const int ncol = max(0, min(nc, n - c0));  // this CTA's columns
+  const int tid = threadIdx.x;
+  const size_t b = blockIdx.x / C;
 
-  float* s_w = smem;        // n: x-side operand of the row dots
-  float* s_dy = s_w + n;    // m: y deltas
-  float* s_dsy = s_dy + m;  // m: y delta sums
-  float* s_dqy = s_dsy + m; // m: projected y rhs
-  float* s_v = s_dqy + m;   // m: Ninv rhs, then y-side operand of column dots
-  float* s_zy = s_v + m;    // m: dz_y
-  float* red = s_zy + m;    // kWarps * kRed
+  // exchange buffers: parity e holds xbuf[e] (2 m) and slots[e] (kSlot)
+  float* red = smem;                           // kWarps * kRed
+  float* slots = red + kWarps * kRed;          // 2 x kSlot
+  float* s_sums = slots + 2 * kSlot;           // kSlot: an exchange's sums
+  float* s_w = s_sums + kSlot;                 // nc: x operand of row dots
+  float* xbuf = s_w + nc;                      // 2 x 2m
+  float* s_A = xbuf + 4 * (size_t)m;           // resident: m x nc
+  float* s_x = s_A + (size_t)m * nc;           // resident: 17 slices of nc
+  float* s_Ninv = s_x + (size_t)(kXOps + kXState) * nc;  // resident: Ninv'
+  float* s_mv = s_Ninv + (size_t)m * m;        // resident: kMVecs m-vectors
+  // the m-side vectors (replicated in every CTA)
+  float* mv = kRes ? s_mv : a.work + (size_t)blockIdx.x * kMVecs * m;
+  float* s_dy = mv;           // y deltas
+  float* s_dsy = mv + m;      // y delta sums
+  float* s_rhs = mv + 2 * m;  // the exchanged A u, then drhs
+  float* s_zy = mv + 3 * m;   // dz_y; probe: the averaged y
+  float* s_ah = mv + 4 * m;   // A hx, once per launch
 
   const float* sc = a.in[I_SCAL] + b * S_COUNT;
-  const float* A = a.in[I_A] + b * m * n;
-  const float* Ninv = a.in[I_NINV] + b * m * m;
+  const float* gA = a.in[I_A] + b * m * n;
+  const float* gNinv = a.in[I_NINV] + b * m * m;
   const float* hy = a.in[I_HY] + b * m;
   const float* gy = a.in[I_GY] + b * m;
   const float* ey = a.in[I_EY] + b * m;
   const float* q10 = a.in[I_Q10] + b * m;
   const float* y0 = a.in[I_Y0] + b * m;
   const float* c0y = a.in[I_C0Y] + b * m;
-  const float* hx = a.in[I_HX] + b * n;
-  const float* gx = a.in[I_GX] + b * n;
-  const float* maskx = a.in[I_MASKX] + b * n;
-  const float* ex = a.in[I_EX] + b * n;
-  const float* evx = a.in[I_EVX] + b * n;
-  const float* t0x = a.in[I_T0X] + b * n;
-  const float* sax = a.in[I_SAX] + b * n;
-  const float* etx = a.in[I_ETX] + b * n;
-  const float* q20 = a.in[I_Q20] + b * n;
-  const float* x0 = a.in[I_X0] + b * n;
-  const float* vx0 = a.in[I_VX0] + b * n;
-  const float* c0x = a.in[I_C0X] + b * n;
-  const float* c0vx = a.in[I_C0VX] + b * n;
-  float* dx = a.out[O_DX] + b * n;
-  float* dvx = a.out[O_DVX] + b * n;
-  float* dsx = a.out[O_DSX] + b * n;
-  float* dsvx = a.out[O_DSVX] + b * n;
+
+  // this CTA's column slice of each x-side operand (in the order a
+  // resident CTA holds them), and of the x-state
+  const int kXOpIndex[kXOps] = {I_HX,  I_GX,  I_MASKX, I_EX,  I_EVX,
+                                I_T0X, I_SAX, I_ETX,   I_Q20, I_X0,
+                                I_VX0, I_C0X, I_C0VX};
+  const float* xop[kXOps];
+#pragma unroll
+  for (int k = 0; k < kXOps; ++k)
+    xop[k] = kRes ? s_x + (size_t)k * nc : a.in[kXOpIndex[k]] + b * n + c0;
+  const float *hx = xop[0], *gx = xop[1], *maskx = xop[2], *ex = xop[3];
+  const float *evx = xop[4], *t0x = xop[5], *sax = xop[6], *etx = xop[7];
+  const float *q20 = xop[8], *x0 = xop[9], *vx0 = xop[10], *c0x = xop[11];
+  const float* c0vx = xop[12];
+  float* gdx = a.out[O_DX] + b * n + c0;
+  float* gdvx = a.out[O_DVX] + b * n + c0;
+  float* gdsx = a.out[O_DSX] + b * n + c0;
+  float* gdsvx = a.out[O_DSVX] + b * n + c0;
+  float* dx = kRes ? s_x + (size_t)(kXOps + 0) * nc : gdx;
+  float* dvx = kRes ? s_x + (size_t)(kXOps + 1) * nc : gdvx;
+  float* dsx = kRes ? s_x + (size_t)(kXOps + 2) * nc : gdsx;
+  float* dsvx = kRes ? s_x + (size_t)(kXOps + 3) * nc : gdsvx;
+  // A's slice (row stride lda), from shared memory or through L2
+  const float* Ab = kRes ? s_A : gA + c0;
+  const int lda = kRes ? nc : n;
 
   const float rho_y = sc[S_RHOY], inv_gth1 = sc[S_IGTH], lam = sc[S_LAM];
   const float alpha = sc[S_ALPHA], thresh = sc[S_THRESH];
@@ -174,65 +316,170 @@ delta_chunk_kernel(Args a) {
   const float one_m_alpha = 1.0f - alpha;
   const int t_max = a.t_max[b];
 
-  for (int j = tid; j < n; j += kThreads) {
+  if (kRes) {  // the launch's one load of this CTA's operands
+    // the slices' pad columns [ncol, nc) hold zeros
+    for (int e = tid; e < m * nc; e += kThreads) {
+      const int i = e / nc, j = e - i * nc;
+      if (j < ncol)
+        cp_async4(s_A + (size_t)i * nc + j, gA + (size_t)i * n + c0 + j);
+      else
+        s_A[(size_t)i * nc + j] = 0.f;
+    }
+    for (int e = tid; e < m * m; e += kThreads) {  // transposed
+      const int i = e / m, k = e - i * m;
+      cp_async4(s_Ninv + (size_t)k * m + i, gNinv + e);
+    }
+#pragma unroll
+    for (int k = 0; k < kXOps; ++k) {
+      const float* src = a.in[kXOpIndex[k]] + b * n + c0;
+      for (int j = tid; j < nc; j += kThreads) {
+        if (j < ncol)
+          cp_async4(s_x + (size_t)k * nc + j, src + j);
+        else
+          s_x[(size_t)k * nc + j] = 0.f;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int j = tid; j < (kRes ? nc : ncol); j += kThreads) {
     dx[j] = 0.f; dvx[j] = 0.f; dsx[j] = 0.f; dsvx[j] = 0.f;
   }
-  for (int i = tid; i < m; i += kThreads) { s_dy[i] = 0.f; s_dsy[i] = 0.f; }
+  for (int j = tid; j < nc; j += kThreads) s_w[j] = 0.f;
+  for (int i = tid; i < m; i += kThreads) {
+    s_dy[i] = 0.f; s_dsy[i] = 0.f; s_rhs[i] = 0.f;  // A u = 0 at u = 0
+  }
+  if (kRes) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // every CTA of the cluster has started and loaded before any reads
+  // another's shared memory
+  cluster_ops::sync();
+
+  int e = 0;  // parity of the next exchange
+
+  // once per launch: A hx and <hx, gx> over the cluster, <hy, gy> here
+  float hg, hyg;
+  {
+    float* part = xbuf + e * 2 * (size_t)m;
+    rows_dot<false, kRes>(Ab, lda, hx, nullptr, kRes ? nc : ncol, m, part,
+                          nullptr);
+    float p[2] = {0.f, 0.f};
+    for (int j = tid; j < ncol; j += kThreads) p[0] += hx[j] * gx[j];
+    for (int i = tid; i < m; i += kThreads) p[1] += hy[i] * gy[i];
+    block_sum(p, red);
+    hyg = p[1];
+    float* slot = slots + e * kSlot;
+    if (tid == 0) slot[0] = p[0];
+    cluster_ops::sync();
+    for (int i = tid; i < m + 1; i += kThreads) {
+      if (i < m)
+        s_ah[i] = cluster_ops::rank_sum(part, i, C);
+      else
+        s_sums[0] = cluster_ops::rank_sum(slot, 0, C);
+    }
+    __syncthreads();
+    hg = s_sums[0];
+    e ^= 1;
+  }
+  // the exchanged sums the next iteration starts from (u = 0, dy = 0)
+  float ug = 0.f, dyg = 0.f;
   float dtau = 0.f, dkap = 0.f, dstau = 0.f, dskap = 0.f;
-  __syncthreads();
 
   // One ADMM iteration on the deltas (`abip.c:539-584`, `:717-748`).
   auto step = [&]() {
     const float drtau = dtau + dkap;
-    float p[1] = {0.f};
-    for (int i = tid; i < m; i += kThreads) {
-      const float q = rho_y * s_dy[i] - drtau * hy[i];
-      s_dqy[i] = q;
-      p[0] += q * gy[i];
+    // the rank-1 weight: <dqy, gy> + <dqx, gx>, dqy = rho_y dy - drtau hy
+    const float pw = (rho_y * dyg - drtau * hyg) + (ug - drtau * hg);
+    const float dcoef = pw * inv_gth1;
+    const float cw = drtau + dcoef;
+    // drhs = dqy - dcoef hy + A dwx, A dwx = (drtau + dcoef) A hx - A u
+    for (int i = tid; i < m; i += kThreads)
+      s_rhs[i] = ((rho_y * s_dy[i] - drtau * hy[i]) - dcoef * hy[i]) +
+                 (cw * s_ah[i] - s_rhs[i]);
+    __syncthreads();
+    // dz_y = Ninv drhs, in every CTA: resident, one thread a row down the
+    // transposed Ninv; else one warp a row through L2
+    if (kRes) {
+      for (int i = tid; i < m; i += kThreads)
+        s_zy[i] = col_dot(s_Ninv, m, s_rhs, m, i);
+    } else {
+      rows_dot<false, false>(gNinv, m, s_rhs, nullptr, m, m, s_zy, nullptr);
     }
-    for (int j = tid; j < n; j += kThreads)
-      p[0] += ((dx[j] + dvx[j]) - drtau * hx[j]) * gx[j];
-    block_sum(p, red);
-    const float dcoef = p[0] * inv_gth1;
-    for (int j = tid; j < n; j += kThreads) {
+    __syncthreads();
+    // y update (replicated) by warp 0, with its sums <dz_y, hy>, <dy, gy>,
+    // published through s_sums by the exchange's barriers
+    float p[2] = {0.f, 0.f};
+    if (tid < 32) {
+      float py[2] = {0.f, 0.f};
+      for (int i = tid; i < m; i += 32) {
+        const float zy = s_zy[i];
+        const float ny = ey[i] + zy;
+        py[0] += zy * hy[i];
+        py[1] += ny * gy[i];
+        s_dy[i] = ny;
+        s_dsy[i] += ny;
+      }
+      py[0] = warp_sum(py[0]);
+      py[1] = warp_sum(py[1]);
+      if (tid == 0) { s_sums[2] = py[0]; s_sums[3] = py[1]; }
+    }
+    // A' dz_y on this CTA's columns, the x update; <dz_x, hx>, <u, gx>
+    for (int j = tid; j < ncol; j += kThreads) {
+      const float acc = col_dot(Ab, lda, s_zy, m, j);
       const float hj = hx[j];
-      s_w[j] = -(((dx[j] + dvx[j]) - drtau * hj) - dcoef * hj);  // dwx
-    }
-    for (int i = tid; i < m; i += kThreads) s_dqy[i] -= dcoef * hy[i];
-    __syncthreads();
-    for (int i = warp; i < m; i += kWarps) {  // drhs = dqy + A dwx
-      const float acc = row_dot(A + (size_t)i * n, s_w, n, lane);
-      if (lane == 0) s_v[i] = s_dqy[i] + acc;
-    }
-    __syncthreads();
-    for (int i = warp; i < m; i += kWarps) {  // dz_y = Ninv drhs
-      const float acc = row_dot(Ninv + (size_t)i * m, s_v, m, lane);
-      if (lane == 0) s_zy[i] = acc;
-    }
-    __syncthreads();
-    p[0] = 0.f;
-    for (int i = tid; i < m; i += kThreads) p[0] += s_zy[i] * hy[i];
-    for (int j = tid; j < n; j += kThreads) {
-      const float dzx = col_dot(A, s_zy, m, n, j) - s_w[j];
-      p[0] += dzx * hx[j];
       const float dxj = dx[j], dvxj = dvx[j];
+      const float dwx = -(((dxj + dvxj) - drtau * hj) - dcoef * hj);
+      const float dzx = acc - dwx;
+      p[0] += dzx * hj;
       const float drel = alpha * dzx + one_m_alpha * dxj;
       const float dt = (drel - dvxj) + etx[j];
-      const float px = prox_delta(dt, t0x[j], sax[j], lam) * maskx[j];
-      const float dxn = ex[j] + px;
+      const float pxj = prox_delta(dt, t0x[j], sax[j], lam) * maskx[j];
+      const float dxn = ex[j] + pxj;
       const float dvxn = ((dvxj + dxn) - drel) + evx[j];
       dx[j] = dxn;
       dvx[j] = dvxn;
       dsx[j] += dxn;
       dsvx[j] += dvxn;
+      const float u = dxn + dvxn;
+      s_w[j] = u;
+      p[1] += u * gx[j];
     }
-    block_sum(p, red);
-    const float dtau_t = drtau + p[0];
-    for (int i = tid; i < m; i += kThreads) {
-      const float ny = ey[i] + s_zy[i];
-      s_dy[i] = ny;
-      s_dsy[i] += ny;
+    p[0] = warp_sum(p[0]);
+    p[1] = warp_sum(p[1]);
+    if ((tid & 31) == 0) {
+      red[2 * (tid >> 5)] = p[0];
+      red[2 * (tid >> 5) + 1] = p[1];
     }
+    __syncthreads();
+    // the last warp folds this CTA's x-side sums into the exchange slot
+    // while the others form A u on this CTA's columns, for the next
+    // iteration
+    float* slot = slots + e * kSlot;
+    if (tid == kThreads - 32) {
+      float f[2] = {0.f, 0.f};
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        f[0] += red[2 * w];
+        f[1] += red[2 * w + 1];
+      }
+      slot[0] = f[0];
+      slot[1] = f[1];
+    }
+    float* part = xbuf + e * 2 * (size_t)m;
+    rows_dot<false, kRes>(Ab, lda, s_w, nullptr, kRes ? nc : ncol, m, part,
+                          nullptr);
+    // the exchange: A u, <dz_x, hx> and <u, gx> summed over the cluster,
+    // all read in one round of remote loads
+    cluster_ops::sync();
+    for (int i = tid; i < m + 2; i += kThreads) {
+      if (i < m)
+        s_rhs[i] = cluster_ops::rank_sum(part, i, C);
+      else
+        s_sums[i - m] = cluster_ops::rank_sum(slot, i - m, C);
+    }
+    __syncthreads();
+    e ^= 1;
+    ug = s_sums[1];
+    dyg = s_sums[3];
+    const float dtau_t = drtau + (s_sums[2] + s_sums[0]);
     const float drel_t = alpha * dtau_t + one_m_alpha * dtau;
     const float dtt = (drel_t - dkap) + ett;
     const float dtau_n = etau + prox_delta(dtt, t0t, sat, lam);
@@ -243,113 +490,236 @@ delta_chunk_kernel(Args a) {
     dskap += dkap_n;
   };
 
-  // HSD-operator residual at anchor + delta (`abip.c:1951-1996`), of the
-  // current iterate or of the stage average with divisor `dom`.
-  auto qres_delta = [&](bool avg, float dom) -> float {
-    const float at = avg ? (c0tau + dstau) / dom : dtau;
-    const float ak = avg ? (c0kap + dskap) / dom : dkap;
-    for (int j = tid; j < n; j += kThreads)
-      s_w[j] = avg ? (c0x[j] + dsx[j]) / dom : dx[j];
-    for (int i = tid; i < m; i += kThreads)
-      s_v[i] = avg ? (c0y[i] + s_dsy[i]) / dom : s_dy[i];
+  // HSD-operator residual at anchor + delta (`abip.c:1951-1996`) of the
+  // current iterate and of the stage average with divisor `dom`, through
+  // one exchange.
+  auto qres_both = [&](float dom, float& q_cur, float& q_avg) {
+    const float at[2] = {dtau, (c0tau + dstau) / dom};
+    const float ak[2] = {dkap, (c0kap + dskap) / dom};
+    for (int j = tid; j < ncol; j += kThreads) s_w[j] = (c0x[j] + dsx[j]) / dom;
+    for (int i = tid; i < m; i += kThreads) s_zy[i] = (c0y[i] + s_dsy[i]) / dom;
     __syncthreads();
-    // p: |q1|^2, |q2|^2, <y,hy>+<x,hx>, <y0,y>+<x0,x>, |y|^2+|x|^2,
-    //    <vx0,vx>, |vx|^2
-    float p[kRed] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int i = warp; i < m; i += kWarps) {
-      const float acc = row_dot(A + (size_t)i * n, s_w, n, lane);
-      if (lane == 0) {
-        const float q1 = (q10[i] + acc) + at * hy[i];
-        p[0] += q1 * q1;
+    // A x partials of the current (dx) and the averaged (s_w) iterate
+    float* part = xbuf + e * 2 * (size_t)m;
+    rows_dot<true, kRes>(Ab, lda, dx, s_w, kRes ? nc : ncol, m, part,
+                         part + m);
+    // x-side sums, six per iterate: |q2|^2, <x,hx>, <x0,x>, |x|^2,
+    // <vx0,vx>, |vx|^2
+    float p[kRed];
+#pragma unroll
+    for (int k = 0; k < kRed; ++k) p[k] = 0.f;
+    for (int j = tid; j < ncol; j += kThreads) {
+      float ac = 0.f, aa = 0.f;  // A' y of both iterates
+      for (int i = 0; i < m; ++i) {
+        const float aij = Ab[(size_t)i * lda + j];
+        ac += aij * s_dy[i];
+        aa += aij * s_zy[i];
+      }
+      const float ax[2] = {dx[j], s_w[j]};
+      const float avx[2] = {dvx[j], (c0vx[j] + dsvx[j]) / dom};
+      const float ay[2] = {ac, aa};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float q2 = q20[j] + ((ay[s] + avx[s]) - at[s] * hx[j]) * maskx[j];
+        p[6 * s + 0] += q2 * q2;
+        p[6 * s + 1] += ax[s] * hx[j];
+        p[6 * s + 2] += x0[j] * ax[s];
+        p[6 * s + 3] += ax[s] * ax[s];
+        p[6 * s + 4] += vx0[j] * avx[s];
+        p[6 * s + 5] += avx[s] * avx[s];
       }
     }
-    for (int i = tid; i < m; i += kThreads) {
-      const float ay = s_v[i];
-      p[2] += ay * hy[i];
-      p[3] += y0[i] * ay;
-      p[4] += ay * ay;
-    }
-    for (int j = tid; j < n; j += kThreads) {
-      const float ax = s_w[j];
-      const float avx = avg ? (c0vx[j] + dsvx[j]) / dom : dvx[j];
-      const float q2 =
-          q20[j] + ((col_dot(A, s_v, m, n, j) + avx) - at * hx[j]) * maskx[j];
-      p[1] += q2 * q2;
-      p[2] += ax * hx[j];
-      p[3] += x0[j] * ax;
-      p[4] += ax * ax;
-      p[5] += vx0[j] * avx;
-      p[6] += avx * avx;
-    }
     block_sum(p, red);
-    const float q3 = (q30 - p[2]) - ak;
-    const float qsq = (p[0] + p[1]) + q3 * q3;
-    const float un = ((un0 + 2.0f * (p[3] + tau0 * at)) + p[4]) + at * at;
-    const float vn = ((vn0 + 2.0f * (p[5] + kappa0 * ak)) + p[6]) + ak * ak;
-    float nrm = un + vn;
-    nrm = (nrm < 0.f) ? 0.f : nrm;  // max(., 0) that keeps a NaN
-    return sqrtf(qsq) / (1.0f + sqrtf(nrm));
+    float* slot = slots + e * kSlot;
+    if (tid == 0) {
+#pragma unroll
+      for (int k = 0; k < kRed; ++k) slot[k] = p[k];
+    }
+    cluster_ops::sync();
+    // the exchange's reads (both A x, the twelve x-side sums) in one round
+    // of remote loads, with the y-side sums, four per iterate: |q1|^2,
+    // <y,hy>, <y0,y>, |y|^2
+    float r[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int i = tid; i < m + kRed; i += kThreads) {
+      if (i >= m) {
+        s_sums[i - m] = cluster_ops::rank_sum(slot, i - m, C);
+        continue;
+      }
+      const float axs[2] = {cluster_ops::rank_sum(part, i, C),
+                            cluster_ops::rank_sum(part + m, i, C)};
+      const float ys[2] = {s_dy[i], s_zy[i]};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float q1 = (q10[i] + axs[s]) + at[s] * hy[i];
+        r[4 * s + 0] += q1 * q1;
+        r[4 * s + 1] += ys[s] * hy[i];
+        r[4 * s + 2] += y0[i] * ys[s];
+        r[4 * s + 3] += ys[s] * ys[s];
+      }
+    }
+    e ^= 1;
+    block_sum(r, red);  // its barrier also publishes s_sums
+#pragma unroll
+    for (int k = 0; k < kRed; ++k) p[k] = s_sums[k];
+    float q[2];
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const float* px = p + 6 * s;
+      const float* ry = r + 4 * s;
+      const float q3 = (q30 - (ry[1] + px[1])) - ak[s];
+      const float qsq = (ry[0] + px[0]) + q3 * q3;
+      const float un =
+          ((un0 + 2.0f * ((ry[2] + px[2]) + tau0 * at[s])) + (ry[3] + px[3])) +
+          at[s] * at[s];
+      const float vn =
+          ((vn0 + 2.0f * (px[4] + kappa0 * ak[s])) + px[5]) + ak[s] * ak[s];
+      float nrm = un + vn;
+      nrm = (nrm < 0.f) ? 0.f : nrm;  // max(., 0) that keeps a NaN
+      q[s] = sqrtf(qsq) / (1.0f + sqrtf(nrm));
+    }
+    q_cur = q[0];
+    q_avg = q[1];
   };
 
   int t = 0;
   float q = sc[S_QINIT], avg_crit = 0.f;
-  while (t < t_max && q >= thresh) {
+  while (t < t_max && q >= thresh) {  // the same decision in every CTA
     for (int it = 0; it < probe; ++it) step();
     t += probe;
     const float dom = fmaxf(sj_prev + (float)t, 1.0f);
-    const float q_cur = qres_delta(false, dom);
-    const float q_avg = qres_delta(true, dom);
+    float q_cur, q_avg;
+    qres_both(dom, q_cur, q_avg);
     avg_crit = (q_avg < q_cur) ? 1.f : 0.f;
     q = (q_avg != q_avg || q_cur != q_cur) ? q_avg + q_cur
                                            : fminf(q_avg, q_cur);
   }
 
-  float* dy = a.out[O_DY] + b * m;
-  float* dsy = a.out[O_DSY] + b * m;
-  for (int i = tid; i < m; i += kThreads) {
-    dy[i] = s_dy[i];
-    dsy[i] = s_dsy[i];
+  if (kRes) {
+    for (int j = tid; j < ncol; j += kThreads) {
+      gdx[j] = dx[j]; gdvx[j] = dvx[j]; gdsx[j] = dsx[j]; gdsvx[j] = dsvx[j];
+    }
   }
-  if (tid == 0) {
-    float* row = a.out[O_ROW] + b * kRowWidth;
-    row[0] = dtau; row[1] = dkap; row[2] = dstau; row[3] = dskap;
-    row[4] = q; row[5] = (float)t; row[6] = avg_crit;
+  if (rank == 0) {
+    float* dy = a.out[O_DY] + b * m;
+    float* dsy = a.out[O_DSY] + b * m;
+    for (int i = tid; i < m; i += kThreads) {
+      dy[i] = s_dy[i];
+      dsy[i] = s_dsy[i];
+    }
+    if (tid == 0) {
+      float* row = a.out[O_ROW] + b * kRowWidth;
+      row[0] = dtau; row[1] = dkap; row[2] = dstau; row[3] = dskap;
+      row[4] = q; row[5] = (float)t; row[6] = avg_crit;
+    }
   }
+  // no CTA leaves while another may still read its shared memory
+  cluster_ops::sync();
+}
+
+template <bool kRes>
+cudaError_t configure(int C, int smem, cudaLaunchConfig_t* cfg,
+                      cudaLaunchAttribute* attr, int B, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      delta_cluster_kernel<kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(delta_cluster_kernel<kRes>,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed,
+                               1);
+    if (err != cudaSuccess) return err;
+  }
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg->gridDim = dim3(B * C);
+  cfg->blockDim = dim3(kThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = static_cast<cudaStream_t>(stream);
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <bool kRes>
+int max_active(int m, int n, int C, int* clusters) {
+  const int nc = cols_per_cta(n, C);
+  const int smem = (int)(smem_floats(m, nc, kRes) * sizeof(float));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = configure<kRes>(C, smem, &cfg, attr, 1, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveClusters(clusters,
+                                             delta_cluster_kernel<kRes>, &cfg);
+}
+
+template <bool kRes>
+int launch(const Args& a, int B, int C, void* stream) {
+  const int smem = (int)(smem_floats(a.m, a.nc, kRes) * sizeof(float));
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cudaError_t err = configure<kRes>(C, smem, &cfg, attr, B, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, delta_cluster_kernel<kRes>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one lane of shape (m, n) needs.
-long long abip_delta_smem_bytes(int m, int n) {
-  return ((long long)n + 5LL * m + (long long)kWarps * kRed) * sizeof(float);
+// Dynamic shared memory of one CTA for shape (m, n) in clusters of C CTAs,
+// resident (A's slice, Ninv, the x-side slices and the m-side state in
+// shared memory) or not.
+long long abip_delta_smem_bytes(int m, int n, int C, int resident) {
+  const int nc = cols_per_cta(n, C);
+  return smem_floats(m, nc, resident != 0) * (long long)sizeof(float);
 }
 
+// Floats of global workspace per CTA the streaming form needs.
+long long abip_delta_work_floats(int m) { return (long long)kMVecs * m; }
+
 int abip_delta_row_width() { return kRowWidth; }
+
+int abip_delta_threads() { return kThreads; }
 
 const char* abip_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches one chunk over B lanes on `stream`; returns the CUDA error code.
-// in: the 22 f32 DeltaAnchor operands then t_max (int32, B); out: dy, dx,
-// dvx, dsy, dsx, dsvx, row.  All contiguous, lane-major.
-int abip_delta_chunk(void* const* in, void* const* out, int B, int m, int n,
-                     int probe, void* stream) {
+// How many clusters of C CTAs of this shape the card holds at once
+// (cudaOccupancyMaxActiveClusters) into *clusters; returns the CUDA error.
+int abip_delta_max_active_clusters(int m, int n, int C, int resident,
+                                   int* clusters) {
+  *clusters = 0;
+  return resident ? max_active<true>(m, n, C, clusters)
+                  : max_active<false>(m, n, C, clusters);
+}
+
+// Launches one chunk over B lanes, one cluster of C CTAs per lane, on
+// `stream`; returns the CUDA error code.  in: the 22 f32 DeltaAnchor
+// operands then t_max (int32, B); out: dy, dx, dvx, dsy, dsx, dsvx, row.
+// All contiguous, lane-major.  work: B * C * abip_delta_work_floats(m)
+// floats for the streaming form (unused when resident).
+int abip_delta_chunk(void* const* in, void* const* out, void* work, int B,
+                     int m, int n, int probe, int C, int resident,
+                     void* stream) {
+  if (B < 1 || C < 1 || C > cluster_ops::kMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  if (!resident && work == nullptr) return (int)cudaErrorInvalidValue;
   Args a;
   for (int k = 0; k < I_TMAX; ++k) a.in[k] = static_cast<const float*>(in[k]);
   a.t_max = static_cast<const int*>(in[I_TMAX]);
   for (int k = 0; k < O_COUNT; ++k) a.out[k] = static_cast<float*>(out[k]);
+  a.work = static_cast<float*>(work);
   a.m = m;
   a.n = n;
+  a.nc = cols_per_cta(n, C);
   a.probe = probe;
-  const int smem = (int)abip_delta_smem_bytes(m, n);
-  cudaError_t err = cudaFuncSetAttribute(
-      delta_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  delta_chunk_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  return resident ? launch<true>(a, B, C, stream)
+                  : launch<false>(a, B, C, stream);
 }
 
 }  // extern "C"

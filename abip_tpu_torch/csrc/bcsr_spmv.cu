@@ -1,145 +1,171 @@
-// BCSR sparse matrix-vector product for Hopper (sm_90a): y = A @ x.
+// Sparse matrix-vector product for Hopper (sm_90a) over the stored entries
+// only: y = A @ x.
 //
 // Replaces the TPU kernel `_bcsr_kernel` of `abip_tpu/ops/spmv_pallas.py`
 // (Pallas, grid (block rows, max blocks), the x tile gathered through the
 // scalar-prefetched block-column ids).  It computes what
-// `abip_tpu_torch/ops/spmv.py:_bcsr_ref` computes:
+// `abip_tpu_torch/ops/spmv.py:_csr_ref` computes:
 //
-//   y[8i + r] = sum_k sum_j data[i, k, r, j] * x_pad[128 * cols[i, k] + j]
+//   y[i] = sum_{k in [rowptr[i], rowptr[i+1])} vals[k] * x[colidx[k]]
 //
-// for every block row i, with x_pad the zero-padded x; only rows 8i + r < m
-// are written.
+// from the compact rows that `BCSRMatrix.from_scipy` packs beside the
+// (8, 128) tiles.  The tiles' product is the same for finite x; it also
+// multiplies each tile's unstored zeros by x, so a non-finite x at a column
+// a row does not store reaches that row there and not here.
 //
-// Layout.  One thread block per block row, one warp per tile row (8 warps).
-// Lane `l` of warp r owns columns 4l .. 4l + 3 of the 128 in every tile of
-// its row: it reads them as one 16-byte (f32) or two 16-byte (f64) loads, so
-// a warp reads a whole 512- or 1024-byte tile row contiguously.  The lane
-// accumulates its four columns over k in k order; a warp-shuffle reduction
-// folds the 32 lanes and the four columns in a fixed order, so a launch is
-// deterministic.  Four tiles are loaded before any is accumulated, to keep
-// more loads in flight per thread.  A column at or beyond n reads no x (it
-// counts as the zero padding), so x needs no padded copy and whatever lies
-// past its end never reaches y.  A padded tile (all zeros, column 0) adds
-// zeros unless x[0..127] holds inf or NaN, as in the reference.
+// Layout.  A group of G threads takes one row (G a power of two, 4..256,
+// fixed per matrix from its mean row length); a block of 512 threads holds
+// 512 / G rows, so A (1000 rows of ~900 entries, G = 256) gives 500 blocks
+// and A' (10,000 rows of ~90, G = 32) 625, enough for 132 SMs.  A thread
+// takes the entries start + lane, start + lane + G, ... of its row: first
+// the few before the first 16-byte boundary, then 16-byte vectors of vals
+// (and the matching int32 vector of colidx), then the tail.  x is read
+// through the read-only path.  The group sums by warp shuffles, and through
+// shared memory in a fixed order where G > 32.  No atomics: a launch is
+// deterministic.  Only the columns a row stores are read, so nothing past
+// x's end is touched.
 //
-// What bounds it on this card: the tiles are streamed once per launch and
-// each element is used once (2 flops per 8 bytes in f64), so device memory
-// bandwidth bounds it, 3.35 TB/s on an H100 SXM; x (at most a few hundred
-// KB) stays in L1/L2.  At the host LP driver's shape (m=1000, n=10000,
-// density 0.1) A packs to 125 x 72 tiles (73.7 MB in f64) and A' to 1250 x 8
-// (81.9 MB); A gives only 125 blocks for 132 SMs.  Splitting a block row's
-// tiles over several blocks, or more rows per block for A', is later work.
+// What bounds it on this card: every stored entry is read once (8 + 4 bytes
+// in f64) for 2 flops, so device memory bandwidth, 3.35 TB/s on an H100
+// SXM: 10.9 MB of vals, colidx and rowptr for A or A' of the host LP's
+// m=1000, n=10000 instance (900,310 entries), 3.25 us.  In the solver loop
+// A and A' (21.8 MB together) alternate and can stay in the 50 MB L2, so no
+// evict-first hint is given; x (80 KB) stays in L1/L2.
 //
-// Why CUDA C++ and not Triton: it builds and binds like K1-K3 (nvcc into a
-// plain C library, ctypes), and the gather by `cols` is a scalar-indexed
-// load that a thread does directly.
+// Why CUDA C++ and not Triton: it builds and binds like the other kernels
+// (nvcc into a plain C library, ctypes), and the gather by colidx is a
+// scalar-indexed load that a thread does directly.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBR = 8;       // tile rows
-constexpr int kBC = 128;     // tile columns
-constexpr int kLanes = 32;
-constexpr int kPer = kBC / kLanes;   // columns per lane: 4
-constexpr int kUnroll = 4;           // tiles in flight per thread
+constexpr int kThreads = 512;
+constexpr int kGroupMin = 4, kGroupMax = 256;
 
 template <typename T>
-struct Vec4;
+struct Vec;
 template <>
-struct Vec4<float> {
-  static __device__ __forceinline__ void load(const float* p, float* v) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+struct Vec<float> {
+  static constexpr int kW = 4;  // entries per 16 bytes
+  static __device__ __forceinline__ float dot(const float* v, const int* c,
+                                              const float* __restrict__ x) {
+    const float4 a = *reinterpret_cast<const float4*>(v);
+    const int4 j = *reinterpret_cast<const int4*>(c);
+    float s = a.x * __ldg(x + j.x);
+    s += a.y * __ldg(x + j.y);
+    s += a.z * __ldg(x + j.z);
+    s += a.w * __ldg(x + j.w);
+    return s;
   }
 };
 template <>
-struct Vec4<double> {
-  static __device__ __forceinline__ void load(const double* p, double* v) {
-    const double2 a = reinterpret_cast<const double2*>(p)[0];
-    const double2 b = reinterpret_cast<const double2*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+struct Vec<double> {
+  static constexpr int kW = 2;
+  static __device__ __forceinline__ double dot(const double* v, const int* c,
+                                               const double* __restrict__ x) {
+    const double2 a = *reinterpret_cast<const double2*>(v);
+    const int2 j = *reinterpret_cast<const int2*>(c);
+    double s = a.x * __ldg(x + j.x);
+    s += a.y * __ldg(x + j.y);
+    return s;
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kBR * kLanes)
-bcsr_spmv_kernel(const T* __restrict__ data, const int* __restrict__ cols,
-                 const T* __restrict__ x, T* __restrict__ y, int maxk, int m,
-                 int n) {
-  const int i = blockIdx.x;
-  const int r = threadIdx.x / kLanes;
-  const int lane = threadIdx.x % kLanes;
-  const int j0 = lane * kPer;
-  const T* tiles = data + ((size_t)i * maxk * kBR + r) * kBC + j0;
-  const int* ci = cols + (size_t)i * maxk;
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+csr_spmv_kernel(const int* __restrict__ rowptr, const int* __restrict__ colidx,
+                const T* __restrict__ vals, const T* __restrict__ x,
+                T* __restrict__ y, int m) {
+  constexpr int W = Vec<T>::kW;
+  constexpr int kRows = kThreads / G;
+  constexpr int kWarpsPerRow = G > 32 ? G / 32 : 1;
+  __shared__ T part[kThreads / 32];
+  const int g = threadIdx.x / G, l = threadIdx.x % G;
+  const int row = blockIdx.x * kRows + g;
 
-  T acc[kPer] = {0, 0, 0, 0};
-  for (int k0 = 0; k0 < maxk; k0 += kUnroll) {
-    T a[kUnroll][kPer];
-    T xv[kUnroll][kPer];
+  T acc = T(0);
+  if (row < m) {
+    const int start = rowptr[row], end = rowptr[row + 1];
+    // vals and colidx start 16-byte aligned, so index k is aligned where
+    // k is a multiple of W
+    const int head = min(end, (start + W - 1) / W * W);
+    for (int k = start + l; k < head; k += G)
+      acc += vals[k] * __ldg(x + colidx[k]);
+    const int nvec = (end - head) / W;
+    for (int v = l; v < nvec; v += G)
+      acc += Vec<T>::dot(vals + head + v * W, colidx + head + v * W, x);
+    for (int k = head + nvec * W + l; k < end; k += G)
+      acc += vals[k] * __ldg(x + colidx[k]);
+  }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int k = k0 + u;
-      if (k < maxk) {
-        Vec4<T>::load(tiles + (size_t)k * kBR * kBC, a[u]);
-        const int base = ci[k] * kBC + j0;
+  for (int o = (G < 32 ? G : 32) / 2; o > 0; o >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  if (G > 32) {
+    if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (l == 0) {
+      acc = part[g * kWarpsPerRow];
 #pragma unroll
-        for (int t = 0; t < kPer; ++t)
-          xv[u][t] = (base + t < n) ? x[base + t] : T(0);
-      } else {
-#pragma unroll
-        for (int t = 0; t < kPer; ++t) a[u][t] = xv[u][t] = T(0);
-      }
+      for (int w = 1; w < kWarpsPerRow; ++w) acc += part[g * kWarpsPerRow + w];
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-#pragma unroll
-      for (int t = 0; t < kPer; ++t) acc[t] += a[u][t] * xv[u][t];
   }
-  T s = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off /= 2)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  const int row = i * kBR + r;
-  if (lane == 0 && row < m) y[row] = s;
+  if (l == 0 && row < m) y[row] = acc;
+}
+
+template <typename T, int G>
+int launch_g(const int* rowptr, const int* colidx, const T* vals, const T* x,
+             T* y, int m, cudaStream_t stream) {
+  const int blocks = (m + kThreads / G - 1) / (kThreads / G);
+  csr_spmv_kernel<T, G><<<blocks, kThreads, 0, stream>>>(rowptr, colidx, vals,
+                                                        x, y, m);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const void* data, const void* cols, const void* x, void* y,
-           int nbr, int maxk, int m, int n, void* stream) {
-  if (nbr <= 0 || maxk <= 0) return (int)cudaErrorInvalidValue;
-  bcsr_spmv_kernel<T><<<nbr, kBR * kLanes, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(data), static_cast<const int*>(cols),
-      static_cast<const T*>(x), static_cast<T*>(y), maxk, m, n);
-  return (int)cudaGetLastError();
+int launch(const void* rowptr, const void* colidx, const void* vals,
+           const void* x, void* y, int m, int group, void* stream) {
+  if (m <= 0) return (int)cudaErrorInvalidValue;
+  const int* rp = static_cast<const int*>(rowptr);
+  const int* ci = static_cast<const int*>(colidx);
+  const T* v = static_cast<const T*>(vals);
+  const T* xp = static_cast<const T*>(x);
+  T* yp = static_cast<T*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (group) {
+    case 4: return launch_g<T, 4>(rp, ci, v, xp, yp, m, s);
+    case 8: return launch_g<T, 8>(rp, ci, v, xp, yp, m, s);
+    case 16: return launch_g<T, 16>(rp, ci, v, xp, yp, m, s);
+    case 32: return launch_g<T, 32>(rp, ci, v, xp, yp, m, s);
+    case 64: return launch_g<T, 64>(rp, ci, v, xp, yp, m, s);
+    case 128: return launch_g<T, 128>(rp, ci, v, xp, yp, m, s);
+    case 256: return launch_g<T, 256>(rp, ci, v, xp, yp, m, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// The tile shape this source was built for, as 1000 * rows + columns.
-int abip_bcsr_tile() { return kBR * 1000 + kBC; }
+// The group sizes this source was built for, as 1000 * smallest + largest.
+int abip_csr_group_range() { return kGroupMin * 1000 + kGroupMax; }
 
 const char* abip_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// y (m) = A @ x (n) for A packed as data (nbr, maxk, 8, 128) and cols
-// (nbr, maxk) int32, all contiguous on the device; launches on `stream` and
-// returns the CUDA error code.
-int abip_bcsr_spmv_f32(const void* data, const void* cols, const void* x,
-                       void* y, int nbr, int maxk, int m, int n,
-                       void* stream) {
-  return launch<float>(data, cols, x, y, nbr, maxk, m, n, stream);
+// y (m) = A @ x for A as rowptr (m + 1), colidx (nnz) int32 and vals (nnz),
+// all contiguous and 16-byte aligned on the device, `group` threads a row;
+// launches on `stream` and returns the CUDA error code.
+int abip_csr_spmv_f32(const void* rowptr, const void* colidx, const void* vals,
+                      const void* x, void* y, int m, int group, void* stream) {
+  return launch<float>(rowptr, colidx, vals, x, y, m, group, stream);
 }
 
-int abip_bcsr_spmv_f64(const void* data, const void* cols, const void* x,
-                       void* y, int nbr, int maxk, int m, int n,
-                       void* stream) {
-  return launch<double>(data, cols, x, y, nbr, maxk, m, n, stream);
+int abip_csr_spmv_f64(const void* rowptr, const void* colidx, const void* vals,
+                      const void* x, void* y, int m, int group, void* stream) {
+  return launch<double>(rowptr, colidx, vals, x, y, m, group, stream);
 }
 
 }  // extern "C"

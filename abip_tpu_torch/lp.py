@@ -13,7 +13,8 @@ average and q-update cadences are host branches, and only the stop test
 from the device, once per iteration.  The iteration semantics are the
 reference's: the same j, k, cadences and stop.
 
-A scipy sparse A is packed as BCSR tiles or ELL rows
+A scipy sparse A is packed as the compact rows of its stored entries
+(the reference's BCSR layout) or as ELL rows
 (`LinearOperator.from_scipy_sparse`); on a CUDA card every BCSR product
 (projection, inner criterion, residuals, BB trials, PCG) launches the
 kernel K5 (`csrc/bcsr_spmv.cu`).

@@ -6,7 +6,8 @@ distance from the chunk-entry iterate, so f32's relative error becomes a
 tiny absolute error.  The anchor images (one absolute ADMM step, prox
 anchors, residual anchors) are computed once per chunk in f64 by
 `delta_anchor`; the per-iteration work is `_delta_compute` (the plain
-PyTorch version) or the CUDA kernel `csrc/admm_delta.cu`.
+PyTorch version) or the CUDA kernel `csrc/admm_delta.cu`, which runs
+each lane as one thread-block cluster (`delta_launch_plan`).
 
 Numerical hygiene, as in the reference (each is load-bearing):
 
@@ -206,6 +207,71 @@ def _delta_compute(anc: DeltaAnchor, t_max, probe):
     return dy, dx, dvx, dsy, dsx, dsvx, row
 
 
+# The kernel's launch: one cluster of C CTAs per lane, 512 threads a CTA.
+# CLUSTER is the size measured fastest at the smoke shape (PERF.md: an
+# H100 SXM holds 17 such clusters at once, all 16 lanes of a tile, but
+# only 15 of 8); 16 is the largest a Hopper card allows (8 is the
+# portable limit).
+CLUSTER = 6
+CLUSTER_MAX = 16
+THREADS = 512
+# shared memory an H100 gives one block (`sharedMemPerBlockOptin`)
+SMEM_OPTIN = 232_448
+# floats of every CTA's reduction scratch (16 warps x 12), its two scalar
+# slots and the exchanged sums (16 each)
+_SCRATCH_FLOATS = (THREADS // 32) * 12 + 3 * 16
+# x-side slices a resident CTA holds: 13 operands and 4 state vectors
+_X_SLICES = 17
+# m-side vectors outside the exchange buffers: in shared memory where
+# resident, else in a global workspace of this many m-vectors per CTA
+_M_VECS = 5
+
+
+class DeltaPlan(NamedTuple):
+    """How one chunk launches: `cluster` CTAs per lane; `resident`: A's
+    column slice, Ninv and the x-side slices live in each CTA's shared
+    memory (else they are read through L2); `smem_bytes` per CTA."""
+
+    cluster: int
+    resident: bool
+    smem_bytes: int
+
+
+def delta_cols_per_cta(n, cluster):
+    """Columns each CTA of a lane owns: ceil(n / cluster) rounded up to a
+    multiple of 4 (the kernel reads resident rows as 16-byte vectors)."""
+    return -(-(-(-n // cluster)) // 4) * 4
+
+
+def delta_smem_bytes(m, n, cluster, resident):
+    """Dynamic shared memory of one CTA (`csrc/admm_delta.cu:smem_floats`):
+    two exchange buffers of 2 m, the reduction scratch, the row dots' x
+    operand (nc = `delta_cols_per_cta`), and where resident the 5 m-side
+    vectors, A's slice (m nc), Ninv (m^2) and the 17 x-side slices."""
+    nc = delta_cols_per_cta(n, cluster)
+    floats = 4 * m + _SCRATCH_FLOATS + nc
+    if resident:
+        floats += _M_VECS * m + m * nc + m * m + _X_SLICES * nc
+    return 4 * floats
+
+
+def delta_launch_plan(m, n, smem_limit=SMEM_OPTIN):
+    """The launch of a chunk of shape (m, n): clusters of CLUSTER CTAs,
+    resident if that fits `smem_limit`, else streaming A, Ninv and the
+    x-side operands through L2.  Raises where even the streaming form
+    does not fit (it needs less than one block per lane needed: n + 5 m
+    floats and the scratch)."""
+    if m < 1 or n < 1:
+        raise ValueError(f"empty chunk: m={m} n={n}")
+    for resident in (True, False):
+        nbytes = delta_smem_bytes(m, n, CLUSTER, resident)
+        if nbytes <= smem_limit:
+            return DeltaPlan(CLUSTER, resident, nbytes)
+    raise ValueError(
+        f"shape m={m} n={n} needs {nbytes} B of shared memory per CTA even "
+        f"with A streamed through L2; this card allows {smem_limit}")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib():
     from .build import load
@@ -213,25 +279,57 @@ def _kernel_lib():
     lib = load("admm_delta").lib
     lib.abip_delta_chunk.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.abip_delta_chunk.restype = ctypes.c_int
-    lib.abip_delta_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.abip_delta_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.abip_delta_smem_bytes.restype = ctypes.c_longlong
-    lib.abip_delta_row_width.argtypes = []
-    lib.abip_delta_row_width.restype = ctypes.c_int
+    lib.abip_delta_work_floats.argtypes = [ctypes.c_int]
+    lib.abip_delta_work_floats.restype = ctypes.c_longlong
+    lib.abip_delta_max_active_clusters.argtypes = [
+        ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    lib.abip_delta_max_active_clusters.restype = ctypes.c_int
+    for fn in (lib.abip_delta_row_width, lib.abip_delta_threads):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.abip_cuda_error_string.argtypes = [ctypes.c_int]
     lib.abip_cuda_error_string.restype = ctypes.c_char_p
     if lib.abip_delta_row_width() != ROW_WIDTH:
         raise RuntimeError("csrc/admm_delta.cu and its wrapper disagree on "
                            "the output row width")
+    if (lib.abip_delta_threads() != THREADS
+            or lib.abip_delta_work_floats(1) != _M_VECS):
+        raise RuntimeError("csrc/admm_delta.cu and its wrapper disagree on "
+                           "the threads or the workspace per CTA")
     return lib
 
 
-def delta_chunk_cuda(anc: DeltaAnchor, t_max, probe):
-    """The chunk on the card: one launch of `csrc/admm_delta.cu` over the
-    lanes.  Same contract as `_delta_compute`.  Raises on an operand the
-    kernel does not take and on a refused launch; never falls back."""
+def _cuda_error(lib, what, err):
+    return RuntimeError(f"{what}: " + lib.abip_cuda_error_string(err).decode())
+
+
+@functools.lru_cache(maxsize=None)
+def delta_max_active_clusters(m, n, plan: DeltaPlan, device_index=0):
+    """How many of the plan's clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters` for its cluster size and shared
+    memory).  A lane is one cluster; more lanes than this queue."""
+    lib = _kernel_lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.abip_delta_max_active_clusters(
+            m, n, plan.cluster, int(plan.resident), ctypes.byref(out))
+    if err:
+        raise _cuda_error(lib, "admm_delta occupancy query failed", err)
+    return out.value
+
+
+def delta_chunk_cuda(anc: DeltaAnchor, t_max, probe, plan=None):
+    """The chunk on the card: one launch of `csrc/admm_delta.cu`, one
+    thread-block cluster per lane, by `delta_launch_plan`.  Same contract
+    as `_delta_compute`.  `plan` replaces the launch plan, to time other
+    cluster sizes; the solvers never pass it.  Raises on an operand the
+    kernel does not take, on a plan the card cannot hold and on a refused
+    launch; never falls back."""
     B, m, n = anc.A.shape
     dev = anc.A.device
     if dev.type != "cuda":
@@ -249,24 +347,36 @@ def delta_chunk_cuda(anc: DeltaAnchor, t_max, probe):
     t_max = t_max.to(device=dev, dtype=torch.int32).contiguous()
     if tuple(t_max.shape) != (B,):
         raise ValueError(f"t_max must be ({B},); got {tuple(t_max.shape)}")
-    lib = _kernel_lib()
-    smem = lib.abip_delta_smem_bytes(m, n)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"shape m={m} n={n} needs {smem} B of shared memory "
-                         f"per block; this card allows {limit}")
+    if plan is None:
+        plan = delta_launch_plan(m, n, limit)
+    elif not 1 <= plan.cluster <= CLUSTER_MAX or plan.smem_bytes > limit:
+        raise ValueError(f"plan {plan} outside clusters of 1-{CLUSTER_MAX} "
+                         f"CTAs and {limit} B of shared memory")
+    lib = _kernel_lib()
+    if lib.abip_delta_smem_bytes(m, n, plan.cluster,
+                                 int(plan.resident)) != plan.smem_bytes:
+        raise RuntimeError("csrc/admm_delta.cu and its wrapper disagree on "
+                           "the shared memory of a CTA")
+    if delta_max_active_clusters(m, n, plan, dev.index or 0) < 1:
+        raise RuntimeError(
+            f"the card cannot hold one cluster of {plan.cluster} CTAs with "
+            f"{plan.smem_bytes} B of shared memory each (m={m} n={n})")
     outs = [torch.empty((B, k), dtype=f32, device=dev)
             for k in (m, n, n, m, n, n, ROW_WIDTH)]
     ins = (ctypes.c_void_p * (len(anc) + 1))(
         *[x.data_ptr() for x in anc], t_max.data_ptr())
     outp = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
+    # the streaming form keeps each CTA's m-side vectors in global memory
+    work = None if plan.resident else torch.empty(
+        (B * plan.cluster * _M_VECS * m,), dtype=f32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.abip_delta_chunk(ins, outp, B, m, n, probe,
-                                   ctypes.c_void_p(stream))
+        err = lib.abip_delta_chunk(
+            ins, outp, None if work is None else work.data_ptr(), B, m, n,
+            probe, plan.cluster, int(plan.resident), ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError("admm_delta kernel launch failed: "
-                           + lib.abip_cuda_error_string(err).decode())
+        raise _cuda_error(lib, "admm_delta kernel launch failed", err)
     delta_chunk_cuda.launches += 1
     return tuple(outs)
 

@@ -3,8 +3,9 @@
 Port of `abip_tpu/problem.py`, the analogue of the reference's
 `spe_problem` vtable (`src/abip-qcp/include/abip.h:29-60`): a pair of
 closures `matvec`/`rmatvec` over tensors, which live on the caller's
-device.  The sparse operator packs A and A' once, as BCSR tiles (K5) or
-as ELL rows, by the reference's fill estimate.
+device.  The sparse operator packs A and A' once, where the reference
+would take BCSR tiles as the compact rows K5 reads, else as ELL rows, by
+the reference's fill estimate.
 """
 from __future__ import annotations
 
@@ -69,9 +70,11 @@ class LinearOperator:
 
         Both A and A' are packed once at setup (the reference stores an
         explicit transpose too, `linsys/indirect.c:290-300`).  `layout`
-        picks between (8,128)-tiled BCSR (block-structured sparsity, K5)
-        and padded-row ELL (scattered sparsity, gather + reduce); "auto"
-        chooses ELL when BCSR tiles would be mostly padding.
+        picks between "bcsr" (block-structured sparsity, where the
+        reference takes (8,128) tiles; here the compact rows of the
+        stored entries, K5) and padded-row ELL (scattered sparsity,
+        gather + reduce); "auto" chooses ELL when BCSR tiles would be
+        mostly padding.
         """
         import numpy as np
         import scipy.sparse as sp

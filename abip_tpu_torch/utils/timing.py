@@ -38,12 +38,15 @@ def cuda_ms(fn, *, iters=5, warmup=1):
     return statistics.median(times)
 
 
-def queued_ms(fn, *, iters=25, warmup=2, hold_cycles=200_000_000):
+def queued_ms(fn, *, iters=25, warmup=2, hold_cycles=200_000_000,
+              between=None):
     """Median device milliseconds of one `fn()` over `iters` calls, for
     kernels short enough that issuing them costs the host about as much
     as running them costs the card: every call and its event pair is
     queued behind a device-side wait of `hold_cycles` clock cycles, so the
-    card runs them back to back and no host gap is timed."""
+    card runs them back to back and no host gap is timed.  `between()`,
+    where given, runs before each call outside its events (a cache
+    flush, for a cold time)."""
     _need_cuda()
     for _ in range(warmup):
         fn()
@@ -52,6 +55,8 @@ def queued_ms(fn, *, iters=25, warmup=2, hold_cycles=200_000_000):
                torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     torch.cuda._sleep(hold_cycles)
     for start, end in events:
+        if between is not None:
+            between()
         start.record()
         fn()
         end.record()

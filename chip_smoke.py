@@ -12,21 +12,25 @@ duration:
    `csrc/admm_sprint.cu` (LP stopping and plain sprint), K2
    `csrc/conic_ladder.cu` (conic phase 1), K4 `csrc/conic_sprint.cu`
    (conic one-stage sprint), K3 `csrc/conic_delta.cu` (conic delta
-   chunk), K5 `csrc/bcsr_spmv.cu` (BCSR SpMV), K8
-   `csrc/barrier_step.cu` (fused barrier step);
-2. host LP driver: hold K5 against its plain version and scipy's f64
-   product (A and A' of the smoke instance, ragged shapes; f64 and f32);
+   chunk), K5 `csrc/bcsr_spmv.cu` (sparse product over the stored
+   entries), K8 `csrc/barrier_step.cu` (fused barrier step);
+2. host LP driver: hold K5 against its plain version, the tile product
+   and scipy's f64 product (A and A' of the smoke instance, ragged
+   shapes, rows of widely differing lengths; f64 and f32);
    solve three fresh smoke LPs (m=1000, n=10000, density 0.1, the shape
    of `benchmarks/results/r05_lp_m1000_tpu.json`) through `solve_lp`'s
    workspace on a CSR A, as a user calls it (BCSR layout, dense
    Cholesky), against scipy's HiGHS; the same driver with linsys="cg" at
-   m=200; time K5 against its plain version and cuSPARSE; profile one
+   m=200; time K5 cold and warm against its plain version and cuSPARSE
+   (int64 and int32 indices), and at each group size; profile one
    solve;
-3. LP batch: hold K1 against its plain PyTorch version on mid-solve
-   anchors (B=16 at the smoke shape m=50, n=2000 and a ragged m=37,
-   n=411; T=64, thresh=0; then thresholds that stop lanes mid-chunk);
-   solve a fresh B=16 smoke batch through `solve_lp_batch` (eps=1e-6,
-   chunk T=1536) against scipy's HiGHS; time it; profile it;
+3. LP batch: hold K1 (one thread-block cluster per lane) against its
+   plain PyTorch version on mid-solve anchors (B=16 at the smoke shape
+   m=50, n=2000, a ragged m=37, n=411, and m=200, n=3000, where A and
+   Ninv are read through L2; T=64, thresh=0; then thresholds that stop
+   lanes mid-chunk); solve a fresh B=16 smoke batch through
+   `solve_lp_batch` (eps=1e-6, chunk T=1536) against scipy's HiGHS;
+   time it, and one chunk at each cluster size; profile it;
 4. conic: hold K2 against its plain version on phase 1 from the cold
    start (dim-1020 B=16 and a small primal-form batch with a diagonal
    Q), and K3 on mid-solve anchors (T=64, thresh=0; then thresholds that
@@ -201,56 +205,71 @@ def compare(ker, plain, label):
     return worst, strict
 
 
-def phase_kernel_parity(torch, dev):
-    from abip_tpu_torch.ops.admm_delta import _delta_compute, delta_chunk_cuda
+# K1's parity shapes: the smoke shape, a ragged one, and one whose CTAs
+# cannot hold A's slice and Ninv, so that they read them through L2
+K1_CASES = (("smoke B=16 m=50 n=2000", SMOKE, B),
+            ("ragged B=5 m=37 n=411", dict(m=37, n_rand=374), 5),
+            ("L2-streaming B=4 m=200 n=3000", dict(m=200, n_rand=2800), 4))
 
-    worst = 0.0
-    cases = (("smoke B=16 m=50 n=2000", SMOKE, B),
-             ("ragged B=5 m=37 n=411", dict(m=37, n_rand=374), 5))
-    for label, shape, nb in cases:
-        _, stacks = smoke_batch(500, nb, **shape)
-        S, u, v = mid_solve_state(torch, stacks, dev)
-        anc = make_anchor(torch, S, u, v, 0.0)
-        t_max = torch.full((nb,), 64, dtype=torch.int32, device=dev)
-        ker = delta_chunk_cuda(anc, t_max, PROBE)
-        plain = _delta_compute(anc, t_max, PROBE)
-        torch.cuda.synchronize()
-        if not torch.equal(ker[6][:, 5], plain[6][:, 5]):
-            raise AssertionError(f"{label}: t_done differs")
-        err, strict = compare(ker, plain, label)
-        exact = _delta_compute(
-            type(anc)(*[x.double() for x in anc]), t_max, PROBE)
-        kerr = max(float((k.double() - e).abs().max())
-                   for k, e in zip(ker, exact))
-        perr = max(float((p.double() - e).abs().max())
-                   for p, e in zip(plain, exact))
-        if kerr > ACC_RATIO * perr:
-            raise AssertionError(
-                f"{label}: kernel is {kerr:.3e} from the f64 run, more than "
-                f"{ACC_RATIO}x the plain version's {perr:.3e}")
-        worst = max(worst, err)
-        print(f"parity {label} T=64: max|kernel-plain|={err:.3e} "
-              f"(rtol {RTOL} + {REL_SCALE}*scale: ok; rtol {STRICT_RTOL} "
-              f"atol {STRICT_ATOL}: {'ok' if strict else 'exceeded'}); "
-              f"vs f64 run: kernel {kerr:.3e}, plain {perr:.3e} (kernel at "
-              f"most {ACC_RATIO}x: ok); t_done equal")
-        if label.startswith("smoke"):
-            smoke = (S, u, v, plain)
-    # thresholds just above each lane's qres after 64 iterations stop the
-    # lanes mid-chunk
-    S, u, v, plain64 = smoke
-    anc = make_anchor(torch, S, u, v, 1.05 * plain64[6][:, 4].double())
-    t_max = torch.full((B,), 256, dtype=torch.int32, device=dev)
+
+def k1_parity(torch, dev, label, shape, nb):
+    """K1 against its plain version on mid-solve anchors of one shape:
+    T=64 at thresh=0 (equal t_done, every output within the stated
+    tolerance, at most ACC_RATIO times the plain version's distance from
+    an f64 run); then thresholds just above each lane's criterion after
+    64 iterations, which stop lanes mid-chunk (t_done within one probe).
+    Returns the largest |kernel - plain|."""
+    from abip_tpu_torch.ops.admm_delta import (
+        _delta_compute, delta_chunk_cuda, delta_launch_plan,
+        delta_max_active_clusters)
+
+    _, stacks = smoke_batch(500, nb, **shape)
+    S, u, v = mid_solve_state(torch, stacks, dev)
+    anc = make_anchor(torch, S, u, v, 0.0)
+    _, m, n = anc.A.shape
+    plan = delta_launch_plan(m, n)
+    if label.startswith("L2") == plan.resident:
+        raise AssertionError(f"{label}: plan {plan}")
+    t_max = torch.full((nb,), 64, dtype=torch.int32, device=dev)
+    ker = delta_chunk_cuda(anc, t_max, PROBE)
+    plain = _delta_compute(anc, t_max, PROBE)
+    torch.cuda.synchronize()
+    if not torch.equal(ker[6][:, 5], plain[6][:, 5]):
+        raise AssertionError(f"{label}: t_done differs")
+    err, strict = compare(ker, plain, label)
+    exact = _delta_compute(type(anc)(*[x.double() for x in anc]), t_max, PROBE)
+    kerr = max(float((k.double() - e).abs().max()) for k, e in zip(ker, exact))
+    perr = max(float((p.double() - e).abs().max())
+               for p, e in zip(plain, exact))
+    if kerr > ACC_RATIO * perr:
+        raise AssertionError(
+            f"{label}: kernel is {kerr:.3e} from the f64 run, more than "
+            f"{ACC_RATIO}x the plain version's {perr:.3e}")
+    print(f"parity K1 {label} T=64 ({plan.cluster} CTAs a lane, "
+          f"{'resident' if plan.resident else 'A through L2'}, "
+          f"{plan.smem_bytes} B shared memory, "
+          f"{delta_max_active_clusters(m, n, plan)} clusters at once): "
+          f"max|kernel-plain|={err:.3e} (rtol {RTOL} + {REL_SCALE}*scale: "
+          f"ok; rtol {STRICT_RTOL} atol {STRICT_ATOL}: "
+          f"{'ok' if strict else 'exceeded'}); vs f64 run: kernel "
+          f"{kerr:.3e}, plain {perr:.3e} (kernel at most {ACC_RATIO}x: ok); "
+          f"t_done equal")
+    anc = make_anchor(torch, S, u, v, 1.05 * plain[6][:, 4].double())
+    t_max = torch.full((nb,), 256, dtype=torch.int32, device=dev)
     tk = delta_chunk_cuda(anc, t_max, PROBE)[6][:, 5].cpu().numpy()
     tp = _delta_compute(anc, t_max, PROBE)[6][:, 5].cpu().numpy()
     tk, tp = tk.astype(int).tolist(), tp.astype(int).tolist()
     if min(tp) >= 256:
-        raise AssertionError("stop case: no lane stopped mid-chunk")
+        raise AssertionError(f"{label} stop case: no lane stopped mid-chunk")
     if max(abs(a - b) for a, b in zip(tk, tp)) > PROBE:
-        raise AssertionError(f"stop case: t_done {tk} vs plain {tp}")
-    print(f"parity stop-mid-chunk B=16 T=256: t_done kernel {tk} plain {tp} "
-          f"(within one probe)")
-    return worst
+        raise AssertionError(f"{label} stop case: t_done {tk} vs plain {tp}")
+    print(f"parity K1 {label} stop-mid-chunk T=256: t_done kernel {tk} plain "
+          f"{tp} (within one probe)")
+    return err
+
+
+def phase_kernel_parity(torch, dev):
+    return max(k1_parity(torch, dev, *case) for case in K1_CASES)
 
 
 def solve(torch, stacks, dev):
@@ -260,7 +279,8 @@ def solve(torch, stacks, dev):
 
 
 def phase_main_path(torch, dev):
-    from abip_tpu_torch.ops.admm_delta import delta_chunk_cuda
+    from abip_tpu_torch.ops.admm_delta import (delta_chunk_cuda,
+                                               delta_launch_plan)
     from abip_tpu_torch.utils.timing import wall_s
 
     data, stacks = smoke_batch(1000)
@@ -274,7 +294,8 @@ def phase_main_path(torch, dev):
           f"ADMM iterations total {int(iters.sum())} mean {iters.mean():.1f}"
           f", IPM mean {res.ipm_iters.double().mean().item():.1f}, wall "
           f"{sec:.3f} s (first solve, includes warm-up), "
-          f"{iters.sum() / sec:.1f} ADMM it/s, K1 launches {launches}")
+          f"{iters.sum() / sec:.1f} ADMM it/s, K1 launches {launches} "
+          f"({delta_launch_plan(*stacks[0].shape[1:])})")
     lp_vs_highs(data, res, "main path")
     if launches <= 0:
         raise AssertionError("main path did not launch the kernel")
@@ -306,8 +327,14 @@ def lp_vs_highs(data, res, label):
           f"relative objective gap {worst:.3e} (limit 1e-5)")
 
 
+# the cluster sizes K1 is timed at (16 is beyond the portable 8)
+K1_CLUSTERS = (4, 5, 6, 8, 16)
+
+
 def phase_timing(torch, dev, card):
-    from abip_tpu_torch.ops.admm_delta import _delta_compute, delta_chunk_cuda
+    from abip_tpu_torch.ops.admm_delta import (
+        DeltaPlan, _delta_compute, delta_chunk_cuda, delta_launch_plan,
+        delta_max_active_clusters, delta_smem_bytes)
     from abip_tpu_torch.utils.timing import cuda_ms, wall_s
 
     walls = []
@@ -326,17 +353,29 @@ def phase_timing(torch, dev, card):
     S, u, v = mid_solve_state(torch, stacks, dev)
     anc = make_anchor(torch, S, u, v, 0.0)
     t_max = torch.full((B,), 1536, dtype=torch.int32, device=dev)
+    _, m, n = anc.A.shape
+    plan = delta_launch_plan(m, n)
+    # each cluster size K1 can take, resident, on the same anchors
+    for size in K1_CLUSTERS:
+        p = DeltaPlan(size, True, delta_smem_bytes(m, n, size, True))
+        t = cuda_ms(lambda: delta_chunk_cuda(anc, t_max, PROBE, plan=p),
+                    iters=5)
+        print(f"timing K1 chunk T=1536 B=16 m=50 n=2000 C={size} [{card}]: "
+              f"{t:.3f} ms ({t * 1e3 / 1536:.2f} us/iteration), resident, "
+              f"{p.smem_bytes} B shared memory, "
+              f"{delta_max_active_clusters(m, n, p)} clusters at once")
     ms = cuda_ms(lambda: delta_chunk_cuda(anc, t_max, PROBE), iters=5)
     plain_ms = cuda_ms(lambda: _delta_compute(anc, t_max, PROBE), iters=3)
     # per iteration A'dz and A dwx (two A passes) and the Ninv apply; per
     # probe four more A passes (current and averaged criterion)
     outs = delta_chunk_cuda(anc, t_max, PROBE)
-    _, m, n = anc.A.shape
+    t_done = outs[6][:, 5].int().tolist()
     bms, by = kernel_bound(list(anc) + [t_max], outs, outs[6][:, 5],
                            4 * m * n + 2 * m * m + 8 * m * n / PROBE)
     print(f"timing K1 chunk T=1536 B=16 m=50 n=2000 [{card}]: kernel "
-          f"{ms:.3f} ms ({ms * 1e3 / 1536:.2f} us/iteration), plain "
-          f"version {plain_ms:.3f} ms, bound {bms:.4f} ms ({by})")
+          f"{ms:.3f} ms ({ms * 1e3 / 1536:.2f} us/iteration; the plan's "
+          f"C={plan.cluster}), plain version {plain_ms:.3f} ms, bound "
+          f"{bms:.4f} ms ({by}); t_done per lane {t_done}")
     # the f64 pieces around the kernel, each issued from the host as the
     # solver issues them (event time includes the device's waits)
     from abip_tpu_torch import hsd
@@ -405,7 +444,7 @@ def profile_solve(torch, run, kernels, label):
 def phase_profile(torch, dev):
     _, stacks = smoke_batch(6000)
     profile_solve(torch, lambda: solve(torch, stacks, dev),
-                  {"K1": "delta_chunk_kernel"}, "one LP solve")
+                  {"K1": "delta_cluster_kernel"}, "one LP solve")
 
 
 # ---------------------------------------------------------------------------
@@ -1208,7 +1247,7 @@ def phase_lp_sprint_profile(torch, dev):
     _, stacks = smoke_batch(6100)
     profile_solve(torch, lambda: solve_sprint(torch, stacks, dev,
                                               endgame="delta"),
-                  {"K6": "sprint_kernel", "K1": "delta_chunk_kernel"},
+                  {"K6": "sprint_kernel", "K1": "delta_cluster_kernel"},
                   "one LP sprint2+delta solve")
 
 
@@ -1350,9 +1389,10 @@ def host_lp(seed, **shape):
 
 def spmv_cases():
     """(label, scipy CSR matrix) of K5's parity cases: A and A' of the
-    host-LP smoke instance, and ragged shapes (m not a multiple of 8, n
-    not a multiple of 128, empty block rows, rows with fewer tiles than
-    the widest)."""
+    host-LP smoke instance, ragged shapes (m not a multiple of 8, n not a
+    multiple of 128, empty block rows, rows with fewer tiles than the
+    widest), and rows whose lengths differ widely (empty rows, 1-entry
+    rows, one dense row)."""
     import scipy.sparse as sp
 
     A = host_lp(HOST_SEEDS[0])[0]
@@ -1364,14 +1404,32 @@ def spmv_cases():
     return (("smoke A 1000x10000", A), ("smoke A' 10000x1000", A.T.tocsr()),
             ("ragged 37x300", sp.csr_matrix(R)),
             ("ragged A' 300x37", sp.csr_matrix(R).T.tocsr()),
-            ("one block row 3x1000", sp.csr_matrix(W)))
+            ("one block row 3x1000", sp.csr_matrix(W)),
+            ("skewed rows 300x5000", skewed_rows()))
+
+
+def skewed_rows(m=300, n=5000, seed=7):
+    """Row i stores about n (i / m)^3 entries: empty and 1-entry rows at
+    the top, a dense row at the bottom."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    lens = np.minimum(n, (n * (np.arange(m) / (m - 1)) ** 3).astype(int))
+    lens[5:10] = 1
+    lens[-1] = n
+    cols = [np.sort(rng.choice(n, k, replace=False)) for k in lens]
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    return sp.csr_matrix((rng.standard_normal(int(lens.sum())),
+                          np.concatenate(cols), indptr), shape=(m, n))
 
 
 def spmv_parity(torch, dev, label, A, kind):
-    """K5 on one matrix against its plain version and scipy's f64 product,
-    with NaN past the end of x (never read); raises beyond SPMV_TOL.
-    Returns the largest |kernel - plain|."""
-    from abip_tpu_torch.ops.spmv import BCSRMatrix, _bcsr_ref, bcsr_matvec_cuda
+    """K5 on one matrix against its plain version (over the stored
+    entries), the tile product the reference computes and scipy's f64
+    product, with NaN past the end of x (never read); raises beyond
+    SPMV_TOL.  Returns the largest |kernel - plain|."""
+    from abip_tpu_torch.ops.spmv import (BCSRMatrix, _bcsr_ref, _csr_ref,
+                                         bcsr_matvec_cuda)
 
     dt = {"f64": torch.float64, "f32": torch.float32}[kind]
     m, n = A.shape
@@ -1382,20 +1440,23 @@ def spmv_parity(torch, dev, label, A, kind):
     buf = torch.full((n + 64,), float("nan"), dtype=dt, device=dev)
     buf[:n] = torch.as_tensor(x64, dtype=dt, device=dev)
     ker = bcsr_matvec_cuda(B, buf[:n])
-    plain = _bcsr_ref(B, buf[:n])
+    plain = _csr_ref(B, buf[:n])
+    tiles = _bcsr_ref(B, buf[:n])
     torch.cuda.synchronize()
-    k, p = ker.double().cpu().numpy(), plain.double().cpu().numpy()
+    k, p, t = (v.double().cpu().numpy() for v in (ker, plain, tiles))
     if not np.isfinite(k).all():
         raise AssertionError(f"K5 {label} {kind}: non-finite output")
     tol = SPMV_TOL[kind] * scale + 1e-300
     err = np.abs(k - p)
-    if (err > tol).any() or (kind == "f64" and (np.abs(k - ref) > tol).any()):
+    if ((err > tol).any() or (np.abs(k - t) > tol).any()
+            or (kind == "f64" and (np.abs(k - ref) > tol).any())):
         raise AssertionError(
             f"K5 {label} {kind}: |kernel-plain| {err.max():.3e}, "
-            f"|kernel-scipy| {np.abs(k - ref).max():.3e} beyond "
-            f"{SPMV_TOL[kind]} |A||x|")
-    print(f"parity K5 {label} {kind} (tiles {tuple(B.data.shape)}): "
-          f"max|kernel-plain| {err.max():.3e}, max|kernel-scipy f64| "
+            f"|kernel-tiles| {np.abs(k - t).max():.3e}, |kernel-scipy| "
+            f"{np.abs(k - ref).max():.3e} beyond {SPMV_TOL[kind]} |A||x|")
+    print(f"parity K5 {label} {kind} (nnz {B.nnz}, G={B.group}): "
+          f"max|kernel-plain| {err.max():.3e}, max|kernel-tiles| "
+          f"{np.abs(k - t).max():.3e}, max|kernel-scipy f64| "
           f"{np.abs(k - ref).max():.3e} (limit {SPMV_TOL[kind]} |A||x|, "
           f"largest {scale.max():.3e}: ok)")
     return float(err.max())
@@ -1517,40 +1578,65 @@ def phase_host_cg(torch, dev):
                              f"K5 {launches}x")
 
 
+# bytes written between two launches for a cold time: beyond the 50 MB L2
+FLUSH_BYTES = 64 << 20
+# K5 group sizes timed on A and A' (the packing picks one per matrix)
+K5_GROUPS = (16, 32, 64, 128, 256)
+
+
 def phase_spmv_timing(torch, dev, card):
-    """K5 per launch on A and A' of the smoke instance against its plain
-    version and cuSPARSE (`torch.mv` on a CSR tensor, the yardstick), with
-    its bound.  Returns (ms, plain_ms, library_ms, bound_ms, bound_by) of
-    A."""
-    from abip_tpu_torch.ops.spmv import BCSRMatrix, _bcsr_ref, bcsr_matvec_cuda
+    """K5 per launch on A and A' of the smoke instance, cold (FLUSH_BYTES
+    written between launches) and warm (back to back, as the solver's
+    alternating A and A' can find them in L2), against its plain version
+    and cuSPARSE (`torch.mv` on a CSR tensor, the yardstick) with int64
+    and with int32 indices; each group size of K5_GROUPS warm; the bound
+    counts the bytes of the stored entries (vals, colidx, rowptr) and of x
+    and y.  Returns (cold ms, plain ms, cuSPARSE int32 cold ms, bound ms,
+    bound_by) of A."""
+    import dataclasses
+
+    from abip_tpu_torch.ops.spmv import BCSRMatrix, _csr_ref, bcsr_matvec_cuda
     from abip_tpu_torch.utils.timing import queued_ms
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+
+    def cold_warm(fn):
+        return (queued_ms(fn, between=flush.zero_), queued_ms(fn))
 
     out = None
     A = host_lp(HOST_SEEDS[0])[0]
     for label, M in (("A", A), ("A'", A.T.tocsr())):
         m, n = M.shape
-        B = BCSRMatrix.from_scipy(M, dtype=torch.float64, device=dev)
+        Bm = BCSRMatrix.from_scipy(M, dtype=torch.float64, device=dev)
         x = torch.randn(n, dtype=torch.float64, device=dev)
-        csr = torch.sparse_csr_tensor(
-            torch.as_tensor(M.indptr, dtype=torch.int64, device=dev),
-            torch.as_tensor(M.indices, dtype=torch.int64, device=dev),
-            torch.as_tensor(M.data, dtype=torch.float64, device=dev),
-            size=(m, n))
-        ms = queued_ms(lambda: bcsr_matvec_cuda(B, x))
-        plain = queued_ms(lambda: _bcsr_ref(B, x))
-        lib = queued_ms(lambda: torch.mv(csr, x))
+        lib = {}
+        for it in (torch.int64, torch.int32):
+            csr = torch.sparse_csr_tensor(
+                Bm.rowptr.to(it), Bm.colidx.to(it), Bm.vals, size=(m, n))
+            lib[it] = cold_warm(lambda: torch.mv(csr, x))
+        ms = cold_warm(lambda: bcsr_matvec_cuda(Bm, x))
+        plain = queued_ms(lambda: _csr_ref(Bm, x))
+        groups = {g: queued_ms(lambda: bcsr_matvec_cuda(
+            dataclasses.replace(Bm, group=g), x)) for g in K5_GROUPS}
         nbytes = sum(t.numel() * t.element_size()
-                     for t in (B.data, B.cols, x)) + 8 * m
-        bms, by = bound_ms(nbytes, 2.0 * B.data.numel(), "f64")
-        csr_mb = M.nnz * 12 / 1e6
-        print(f"timing K5 {label} f64 tiles {tuple(B.data.shape)} "
-              f"({nbytes / 1e6:.1f} MB) [{card}]: kernel {ms * 1e3:.1f} us, "
-              f"plain {plain * 1e3:.1f} us, cuSPARSE CSR {lib * 1e3:.1f} us, "
-              f"bound {bms * 1e3:.1f} us ({by}; the nonzeros alone in CSR: "
-              f"{csr_mb:.1f} MB = {csr_mb / 3.35:.1f} us), "
-              f"{nbytes / ms / 1e6:.0f} GB/s")
+                     for t in (Bm.vals, Bm.colidx, Bm.rowptr, x)) + 8 * m
+        bms, by = bound_ms(nbytes, 2.0 * Bm.nnz, "f64")
+        warm_note = ("under the HBM bound: the operands stayed in L2"
+                     if ms[1] < bms else
+                     f"{100 * bms / ms[1]:.0f}% of the bound")
+        print(f"timing K5 {label} f64 nnz {Bm.nnz} G={Bm.group} "
+              f"({nbytes / 1e6:.2f} MB stored entries, x, y) [{card}]: kernel "
+              f"cold {ms[0] * 1e3:.2f} us ({100 * bms / ms[0]:.0f}% of the "
+              f"bound), warm {ms[1] * 1e3:.2f} us ({warm_note}); cuSPARSE CSR "
+              f"int64 cold {lib[torch.int64][0] * 1e3:.2f} warm "
+              f"{lib[torch.int64][1] * 1e3:.2f} us, int32 cold "
+              f"{lib[torch.int32][0] * 1e3:.2f} warm "
+              f"{lib[torch.int32][1] * 1e3:.2f} us; plain {plain * 1e3:.1f} "
+              f"us; bound {bms * 1e3:.2f} us ({by}); warm by group size "
+              + ", ".join(f"G={g} {t * 1e3:.2f}" for g, t in groups.items())
+              + " us")
         if out is None:
-            out = (ms, plain, lib, bms, by)
+            out = (ms[0], plain, lib[torch.int32][0], bms, by)
     return out
 
 
@@ -1564,7 +1650,7 @@ def phase_host_profile(torch, dev):
     ws = LPWorkspace(A, b, c, Settings(eps=HOST_EPS,
                                        max_admm_iters=PROFILE_ADMM))
     profile_solve(torch, ws.solve,
-                  {"K5": ("bcsr_spmv_kernel",),
+                  {"K5": ("csr_spmv_kernel",),
                    "cholesky_solve (trsm/trsv)": ("trsm", "trsv")},
                   "one host LP solve")
 
@@ -1649,7 +1735,7 @@ def main():
                 "bound_ms": bms, "bound_by": by, "library_ms": library}
 
     print(json.dumps({"kernels": [
-        entry("delta_chunk_kernel", "admm_delta.cu",
+        entry("delta_cluster_kernel", "admm_delta.cu",
               "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1),
         entry("conic_ladder_kernel", "conic_ladder.cu",
               "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2),
@@ -1657,7 +1743,7 @@ def main():
               "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3),
         entry("conic_sprint_kernel", "conic_sprint.cu",
               "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4),
-        entry("bcsr_spmv_kernel", "bcsr_spmv.cu",
+        entry("csr_spmv_kernel", "bcsr_spmv.cu",
               "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,
               (k5[0], k5[1], k5[3], k5[4]), library=k5[2]),
         entry("sprint_kernel<true>", "admm_sprint.cu",

@@ -245,3 +245,47 @@ def test_cuda_wrapper_refuses_cpu_tensors(mid):
     with pytest.raises(ValueError, match="CUDA"):
         delta.delta_chunk_cuda(anc, torch.full((1,), 8, dtype=torch.int32), 8)
 
+
+
+# the largest shape the one-block kernel took: n + 5 m floats and its
+# 224-float reduction scratch within the H100's 232,448 bytes
+OLD_LIMIT_FLOATS = delta.SMEM_OPTIN // 4 - 224
+
+
+@pytest.mark.parametrize("m,n,cluster,resident", [
+    (50, 2000, 6, True), (37, 411, 6, True), (200, 3000, 6, False),
+    (50, 5000, 6, False), (1, OLD_LIMIT_FLOATS - 5, 6, False),
+    (11_000, OLD_LIMIT_FLOATS - 55_000, 6, False)],
+    ids=["smoke", "ragged", "L2-streaming", "wide-streaming",
+         "old-limit-wide", "old-limit-tall"])
+def test_delta_launch_plan(m, n, cluster, resident):
+    """The cluster size, the residency and the shared memory a CTA needs;
+    every shape the one-block kernel took still launches."""
+    plan = delta.delta_launch_plan(m, n)
+    assert (plan.cluster, plan.resident) == (cluster, resident)
+    assert plan.smem_bytes == delta.delta_smem_bytes(m, n, cluster, resident)
+    assert plan.smem_bytes <= delta.SMEM_OPTIN
+    nc = -(-n // cluster)
+    nc += -nc % 4                  # 16-byte rows
+    assert plan.smem_bytes == 4 * (4 * m + 240 + nc + (
+        5 * m + m * nc + m * m + 17 * nc if resident else 0))
+
+
+@pytest.mark.parametrize("m,n", [(15_000, 1), (2, OLD_LIMIT_FLOATS * 8)],
+                         ids=["tall", "wide"])
+def test_delta_launch_plan_refuses_beyond_the_largest_shape(m, n):
+    with pytest.raises(ValueError, match="shared memory"):
+        delta.delta_launch_plan(m, n)
+
+
+@pytest.mark.parametrize("spare,resident", [(0, True), (-4, False)],
+                         ids=["fits", "one-float-short"])
+def test_delta_launch_plan_on_a_smaller_card(spare, resident):
+    """The plan is resident exactly where the card's shared memory holds
+    the resident CTA, and streams otherwise."""
+    need = delta.delta_smem_bytes(50, 2000, delta.CLUSTER, True)
+    plan = delta.delta_launch_plan(50, 2000, smem_limit=need + spare)
+    assert plan == delta.DeltaPlan(delta.CLUSTER, resident,
+                                   delta.delta_smem_bytes(50, 2000,
+                                                          delta.CLUSTER,
+                                                          resident))

@@ -6,7 +6,8 @@ runs on a machine that has none, from the root of a checkout:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-K1 (LP delta chunk), K6 and K7 (LP sprints): anchors and states from
+K1 (LP delta chunk, one thread-block cluster per lane), K6 and K7 (LP
+sprints): anchors and states from
 the port's own f64 setup of numpy-seeded smoke LPs, advanced by absolute
 f64 ADMM steps (`chip_smoke.mid_solve_state`).  K2 (conic ladder), K3
 (conic delta chunk) and K4 (conic sprint): the cases and tolerances of
@@ -35,17 +36,25 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,n_rand,B", [(50, 1950, 4), (37, 374, 3)])
-def test_kernel_matches_plain_on_card(cuda_device, m, n_rand, B):
+@pytest.mark.parametrize("m,n_rand,B,cluster", [
+    (50, 1950, 4, None), (37, 374, 3, None), (200, 2800, 2, None),
+    (50, 1950, 2, 4), (50, 1950, 2, 16)],
+    ids=["smoke", "ragged", "L2-streaming", "smoke-C4", "smoke-C16"])
+def test_kernel_matches_plain_on_card(cuda_device, m, n_rand, B, cluster):
     """T=64, thresh=0: equal t_done, and every output within the
     tolerance `chip_smoke.compare` states (rtol 2e-5 plus 1e-5 of the
     output's largest magnitude: both versions reduce in f32, in other
-    orders)."""
+    orders), for the plan's cluster (resident, or at m=200 n=3000 with A
+    and Ninv read through L2) and for resident plans of other cluster
+    sizes, as the smoke times them."""
     _, stacks = chip_smoke.smoke_batch(700, B, m=m, n_rand=n_rand)
     S, u, v = chip_smoke.mid_solve_state(torch, stacks, cuda_device)
     anc = chip_smoke.make_anchor(torch, S, u, v, 0.0)
+    assert delta.delta_launch_plan(m, m + n_rand).resident == (m != 200)
     t_max = torch.full((B,), 64, dtype=torch.int32, device=cuda_device)
-    ker = delta.delta_chunk_cuda(anc, t_max, 8)
+    plan = cluster and delta.DeltaPlan(cluster, True, delta.delta_smem_bytes(
+        m, m + n_rand, cluster, True))
+    ker = delta.delta_chunk_cuda(anc, t_max, 8, plan=plan)
     plain = delta._delta_compute(anc, t_max, 8)
     torch.cuda.synchronize()
     assert ker[6][:, 5].tolist() == plain[6][:, 5].tolist() == [64.0] * B
@@ -54,9 +63,10 @@ def test_kernel_matches_plain_on_card(cuda_device, m, n_rand, B):
 
 @pytest.mark.cuda
 def test_kernel_refuses_shape_beyond_shared_memory(cuda_device):
-    """n=60,000 needs more shared memory per block than the card has:
-    the wrapper raises instead of launching."""
-    B, m, n = 1, 1, 60_000
+    """m=15,000 needs more shared memory per CTA than the card has even
+    with A streamed through L2 (the exchange buffers, 4 m floats): the
+    wrapper raises instead of launching."""
+    B, m, n = 1, 15_000, 1
     z = {name: torch.zeros((B, m if name in delta._M_FIELDS else n),
                            dtype=torch.float32, device=cuda_device)
          for name in delta.DeltaAnchor._fields}
@@ -205,13 +215,14 @@ def _spmv_cases():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["f64", "f32"])
-@pytest.mark.parametrize("index", range(5))
+@pytest.mark.parametrize("index", range(6))
 def test_bcsr_kernel_matches_plain_on_card(cuda_device, index, kind):
-    """K5 against its plain version and scipy's f64 product within the
-    tolerance `chip_smoke.SPMV_TOL` states (1e-12 of |A||x| per row in
-    f64, 1e-5 in f32), on each of `chip_smoke.spmv_cases` (the smoke
-    instance's A and A', ragged shapes), with NaN in x's buffer past its
-    end."""
+    """K5 against its plain version (over the stored entries), the tile
+    product and scipy's f64 product within the tolerance
+    `chip_smoke.SPMV_TOL` states (1e-12 of |A||x| per row in f64, 1e-5 in
+    f32), on each of `chip_smoke.spmv_cases` (the smoke instance's A and
+    A', ragged shapes, rows whose lengths differ widely), with NaN in x's
+    buffer past its end."""
     label, A = list(_spmv_cases().items())[index]
     chip_smoke.spmv_parity(torch, cuda_device, label, A, kind)
 
@@ -249,7 +260,7 @@ def test_entry_points_default_to_the_card(cuda_device):
 
     A, b, c = reference_smoke_lp(m=20, n_rand=180, seed=4)
     ws = abip_tpu_torch.LPWorkspace(sp.csr_matrix(A), b, c)
-    assert ws.device.type == "cuda" and ws.ops.bcsr.data.is_cuda
+    assert ws.device.type == "cuda" and ws.ops.bcsr.vals.is_cuda
     bcsr_matvec_cuda.launches = 0
     assert abip_tpu_torch.solve_lp(sp.csr_matrix(A), b, c,
                                    eps=1e-4).status_name == "Solved"

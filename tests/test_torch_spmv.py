@@ -1,7 +1,10 @@
 """`abip_tpu_torch.ops.spmv` and `ops.ell` against the JAX package.
 
-The BCSR packing must give the reference's arrays exactly (tile order,
-`max_blocks`, zero pads with column 0).  The plain product runs against
+The compact rows the port packs must be scipy's CSR arrays, and the
+tiles packed from them (`bcsr_tiles`, the operand of the reference
+product `_bcsr_ref`) the reference's arrays exactly (tile order,
+`max_blocks`, zero pads with column 0).  The port's product (the plain version of the kernel, over the
+stored entries) runs against
 the reference's Pallas kernel K5 in interpret mode
 (`bcsr_matvec(..., use_pallas=True, interpret=True)`, which runs the
 kernel's body on the CPU; with `use_pallas=None` the CPU takes the XLA
@@ -53,9 +56,10 @@ def test_bcsr_packing_equals_reference(case, kind):
     ref = JBCSR.from_scipy(A, dtype=jdt)
     port = spmv.BCSRMatrix.from_scipy(A, dtype=tdt)
     assert port.shape == ref.shape and port.nnz == ref.nnz
-    assert port.cols.dtype == torch.int32
-    np.testing.assert_array_equal(port.cols.numpy(), np.asarray(ref.cols))
-    np.testing.assert_array_equal(port.data.numpy(), np.asarray(ref.data))
+    data, cols = spmv.bcsr_tiles(port)
+    assert cols.dtype == torch.int32 and data.dtype == tdt
+    np.testing.assert_array_equal(cols.numpy(), np.asarray(ref.cols))
+    np.testing.assert_array_equal(data.numpy(), np.asarray(ref.data))
 
 
 @pytest.mark.parametrize("kind", sorted(DTYPES))
@@ -72,6 +76,88 @@ def test_bcsr_matvec_matches_pallas_interpret(case, kind):
     bound = TOL[kind] * (abs(A) @ np.abs(x)) + 1e-300
     assert (np.abs(y - y_ref) <= bound).all()
     assert (np.abs(y - A @ x) <= bound).all()
+
+
+def _compact_case(case):
+    """The matrices of IDS, one with explicit stored zeros, one that
+    stores some entries twice (unsorted, not yet summed), and an A' whose
+    rows hold one entry each (A with one full row)."""
+    if case == "duplicates":
+        A = _matrix("20x50")
+        rows = np.repeat(np.arange(20), np.diff(A.indptr))
+        pick = np.arange(0, A.nnz, 3)
+        data = np.concatenate([A.data, 0.5 * A.data[pick]])
+        r = np.concatenate([rows, rows[pick]])
+        c = np.concatenate([A.indices, A.indices[pick]])
+        order = np.argsort(r, kind="stable")
+        indptr = np.concatenate([[0], np.cumsum(np.bincount(r, minlength=20))])
+        return sp.csr_matrix((data[order], c[order], indptr), shape=A.shape)
+    if case == "explicit-zeros":
+        A = _matrix("100x300").copy()
+        A.data[::5] = 0.0                   # stored, so packed
+        return A
+    if case == "transposed-1-entry":
+        A = sp.lil_matrix((6, 40))
+        A[2, :] = np.arange(1.0, 41.0)
+        A[4, 7] = -2.0
+        return sp.csr_matrix(A).T.tocsr()
+    return _matrix(case)
+
+
+COMPACT_IDS = IDS + ["explicit-zeros", "duplicates", "transposed-1-entry"]
+
+
+@pytest.mark.parametrize("case", COMPACT_IDS)
+def test_compact_rows_equal_scipy_csr(case):
+    """rowptr, colidx and vals are scipy's CSR arrays of the same matrix:
+    rows in order, columns ascending, duplicates summed, explicit zeros
+    kept; nnz counts the entries the kernel reads."""
+    A = _compact_case(case)
+    ref = sp.csr_matrix(A).copy()
+    ref.sum_duplicates()
+    assert (ref.nnz < A.nnz) == (case == "duplicates")
+    port = spmv.BCSRMatrix.from_scipy(A, dtype=torch.float64)
+    assert port.rowptr.dtype == port.colidx.dtype == torch.int32
+    np.testing.assert_array_equal(port.rowptr.numpy(), ref.indptr)
+    np.testing.assert_array_equal(port.colidx.numpy(), ref.indices)
+    np.testing.assert_array_equal(port.vals.numpy(), ref.data)
+    assert port.vals.numel() == ref.nnz == port.nnz
+
+
+@pytest.mark.parametrize("kind", sorted(DTYPES))
+@pytest.mark.parametrize("case", COMPACT_IDS)
+def test_plain_product_over_stored_entries(case, kind):
+    """The kernel's plain version over the compact rows equals the tile
+    product and scipy's f64 product within TOL of |A| |x| per row."""
+    A = _compact_case(case)
+    tdt = DTYPES[kind][1]
+    x = np.random.default_rng(8).standard_normal(A.shape[1])
+    port = spmv.BCSRMatrix.from_scipy(A, dtype=tdt)
+    xt = torch.as_tensor(x)
+    y = spmv._csr_ref(port, xt).double().numpy()
+    tiles = spmv._bcsr_ref(port, xt).double().numpy()
+    bound = TOL[kind] * (abs(A) @ np.abs(x)) + 1e-300
+    assert (np.abs(y - tiles) <= bound).all()
+    assert (np.abs(y - A @ x) <= bound).all()
+
+
+# the host LP's smoke instance (m=1000, n=10000, 900,310 stored entries):
+# A has 819-987 entries a row, A' 1-136 (mean 90)
+@pytest.mark.parametrize("nnz,m,group", [
+    (900_310, 1000, 256), (900_310, 10_000, 32), (1500, 3, 128),
+    (40, 40, 4), (0, 5, 4), (10**7, 10, 256)],
+    ids=["smoke-A", "smoke-At", "three-rows", "one-entry-rows", "empty",
+         "dense-rows"])
+def test_group_size(nnz, m, group):
+    assert spmv.csr_group_size(nnz, m) == group
+
+
+def test_group_size_of_the_packing():
+    """The packing fixes the group from the matrix's mean row length."""
+    A = _compact_case("transposed-1-entry")
+    assert spmv.BCSRMatrix.from_scipy(A).group == spmv.GROUP_MIN
+    A = sp.csr_matrix(np.ones((2, 900)))
+    assert spmv.BCSRMatrix.from_scipy(A).group == 256
 
 
 def test_bcsr_ignores_x_past_its_end():
@@ -148,3 +234,25 @@ def test_layout_choice_matches_reference(case):
 def test_importing_the_kernel_module_builds_nothing():
     """The kernel library is built at the first launch, not at import."""
     assert spmv._kernel_lib.cache_info().currsize == 0
+
+
+def test_nonfinite_x_at_an_unstored_column():
+    """The one deliberate difference from the reference (ROADMAP queue 3):
+    the reference's tiles multiply their unstored zeros by x, so a NaN at
+    a column that a row does not store reaches that row there; the port
+    reads only the stored entries."""
+    A = _matrix("17x260")
+    x = np.random.default_rng(3).standard_normal(260)
+    j = 5
+    x[j] = np.nan
+    stores = np.isin(np.arange(17), A[:, [j]].nonzero()[0])
+    y_ref = np.asarray(j_bcsr_matvec(JBCSR.from_scipy(A, dtype=jnp.float64),
+                                     jnp.asarray(x), use_pallas=True,
+                                     interpret=True))
+    y = spmv.bcsr_matvec(spmv.BCSRMatrix.from_scipy(A, dtype=torch.float64),
+                         torch.as_tensor(x)).numpy()
+    assert np.isnan(y_ref).all()             # column 5 lies in every tile
+    assert np.isnan(y[stores]).all()
+    assert np.isfinite(y[~stores]).all() and (~stores).any()
+    np.testing.assert_allclose(y[~stores], (A @ np.nan_to_num(x))[~stores],
+                               rtol=1e-12, atol=1e-12)
