@@ -22,7 +22,10 @@
 // operands through L2 and keeping the state in global memory (the outputs,
 // and a per-CTA workspace for the m-side); its shared memory (the exchange
 // buffers, 4 m floats, and one x slice) stays within what one block per
-// lane needed (n + 5 m floats).
+// lane needed (n + 5 m floats).  Where even that does not fit, the spilled
+// form is the streaming form with its shared-memory layout in the global
+// workspace too (the other CTAs read its exchange buffers from L2), so
+// that the kernel takes every shape.
 //
 // One cluster exchange per iteration.  The step needs three sums over the
 // lane's columns: <dqx, gx> for the rank-1 weight, A dwx, and <dz_x, hx> for
@@ -62,11 +65,17 @@
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
+using cluster_ops::block_sum;
+using cluster_ops::col_dot;
+using cluster_ops::cols_per_cta;
+using cluster_ops::cp_async4;
+using cluster_ops::kThreads;
+using cluster_ops::kWarps;
+using cluster_ops::rows_dot;
+using cluster_ops::warp_sum;
+
 constexpr int kRed = 12;   // widest block reduction: a probe's 2 x 6 x-sums
 constexpr int kSlot = 16;  // floats of one scalar exchange slot
-constexpr int kRowsPerWarp = 4;  // rows a warp dots at once
 constexpr int kXOps = 13;  // x-side operand slices held in shared memory
 constexpr int kXState = 4; // dx, dvx, dsx, dsvx
 constexpr int kMVecs = 5;  // m-side vectors outside the exchange buffers
@@ -91,13 +100,10 @@ struct Args {
   const float* in[I_TMAX];
   const int* t_max;
   float* out[O_COUNT];
-  float* work;  // streaming form: kMVecs m-vectors per CTA
+  float* work;      // streaming form: wfl floats per CTA
+  long long wfl;    // the m-side vectors, then (spilled) the layout
   int m, n, nc, probe;
 };
-
-// Columns a CTA owns: ceil(n / C) rounded up to a multiple of 4, so that
-// every row of a resident slice starts 16-byte aligned.
-inline int cols_per_cta(int n, int C) { return ((n + C - 1) / C + 3) / 4 * 4; }
 
 // Shared memory of one CTA, in floats: the reduction scratch, the scalar
 // slots and the exchanged sums, one x slice (the row dots' operand), two
@@ -111,121 +117,12 @@ inline long long smem_floats(int m, int nc, bool res) {
   return f;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using cluster_ops::al4;
 
-// Sums each v[k] over the CTA; every thread gets the same bits.  `red` is
-// read after the call returns, so a CTA barrier must pass before the next
-// block_sum writes it (every caller's next one is behind a __syncthreads or
-// a cluster barrier).
-template <int K>
-__device__ __forceinline__ void block_sum(float (&v)[K], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w * K + k];
-    v[k] = s;
-  }
-}
-
-// sum_i M[i, j] y[i] down column j of M (row stride ld), i < m: four
-// partial sums over i mod 4, so that four loads and FMAs are in flight,
-// folded in a fixed order.
-__device__ __forceinline__ float col_dot(const float* M, int ld,
-                                         const float* y, int m, int j) {
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int i = 0;
-  for (; i + 4 <= m; i += 4) {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      acc[k] += M[(size_t)(i + k) * ld + j] * y[i + k];
-  }
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    if (i + k < m) acc[k] += M[(size_t)(i + k) * ld + j] * y[i + k];
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 w) {
-  return (a.x * w.x + a.y * w.y) + (a.z * w.z + a.w * w.w);
-}
-
-// out0[i] = sum_j M[i, j] w0[j] (and out1 with w1 where kTwo) for the rows
-// i < rows, j < len; kRowsPerWarp rows per warp at a time, one pass over
-// the columns for all of them.  M has row stride ld.  kVec: M, w0 and w1
-// are 16-byte aligned, ld and len multiples of 4, and each lane takes four
-// columns a load.
-template <bool kTwo, bool kVec>
-__device__ __forceinline__ void rows_dot(const float* M, int ld,
-                                         const float* w0, const float* w1,
-                                         int len, int rows, float* out0,
-                                         float* out1) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i0 = warp * kRowsPerWarp; i0 < rows; i0 += kWarps * kRowsPerWarp) {
-    float a0[kRowsPerWarp], a1[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) a0[r] = a1[r] = 0.f;
-    if (kVec) {
-      for (int j = lane; j < len / 4; j += 32) {
-        const float4 u = reinterpret_cast<const float4*>(w0)[j];
-        const float4 v = kTwo ? reinterpret_cast<const float4*>(w1)[j] : u;
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          if (i0 + r < rows) {
-            const float4 a =
-                reinterpret_cast<const float4*>(M + (size_t)(i0 + r) * ld)[j];
-            a0[r] += dot4(a, u);
-            if (kTwo) a1[r] += dot4(a, v);
-          }
-        }
-      }
-    } else {
-      for (int j = lane; j < len; j += 32) {
-        const float u = w0[j];
-        const float v = kTwo ? w1[j] : 0.f;
-#pragma unroll
-        for (int r = 0; r < kRowsPerWarp; ++r) {
-          if (i0 + r < rows) {
-            const float a = M[(size_t)(i0 + r) * ld + j];
-            a0[r] += a * u;
-            if (kTwo) a1[r] += a * v;
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      a0[r] = warp_sum(a0[r]);
-      if (kTwo) a1[r] = warp_sum(a1[r]);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        if (i0 + r < rows) {
-          out0[i0 + r] = a0[r];
-          if (kTwo) out1[i0 + r] = a1[r];
-        }
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
-               : "memory");
+// Global workspace of one CTA of the streaming form, in floats: the m-side
+// vectors, and in the spilled form the shared-memory layout after them.
+inline long long work_floats(int m, int nc, bool spill) {
+  return al4((long long)kMVecs * m) + (spill ? al4(smem_floats(m, nc, false)) : 0);
 }
 
 // prox(t0 + dt, lam) - prox(t0, lam) without cancellation; s0 is
@@ -239,9 +136,11 @@ __device__ __forceinline__ float prox_delta(float dt, float t0, float s0,
   return 2.0f * lam * (dt - ds) / ((s - t) * (s0 - t0));
 }
 
-template <bool kRes>
+template <int kForm>
 __global__ void __launch_bounds__(kThreads, 1)
 delta_cluster_kernel(Args a) {
+  constexpr bool kRes = kForm == cluster_ops::kResident;
+  constexpr bool kSpill = kForm == cluster_ops::kSpilled;
   extern __shared__ __align__(16) float smem[];
   cooperative_groups::cluster_group cluster =
       cooperative_groups::this_cluster();
@@ -252,9 +151,14 @@ delta_cluster_kernel(Args a) {
   const int ncol = max(0, min(nc, n - c0));  // this CTA's columns
   const int tid = threadIdx.x;
   const size_t b = blockIdx.x / C;
+  // streaming: this CTA's workspace; spilled, the layout lies in it too,
+  // and `peer` is the stride between the cluster's copies
+  float* ws = kRes ? nullptr : a.work + (size_t)blockIdx.x * a.wfl;
+  const long long peer = kSpill ? a.wfl : 0;
+  float* base = kSpill ? ws + al4((long long)kMVecs * m) : smem;
 
   // exchange buffers: parity e holds xbuf[e] (2 m) and slots[e] (kSlot)
-  float* red = smem;                           // kWarps * kRed
+  float* red = base;                           // kWarps * kRed
   float* slots = red + kWarps * kRed;          // 2 x kSlot
   float* s_sums = slots + 2 * kSlot;           // kSlot: an exchange's sums
   float* s_w = s_sums + kSlot;                 // nc: x operand of row dots
@@ -264,7 +168,7 @@ delta_cluster_kernel(Args a) {
   float* s_Ninv = s_x + (size_t)(kXOps + kXState) * nc;  // resident: Ninv'
   float* s_mv = s_Ninv + (size_t)m * m;        // resident: kMVecs m-vectors
   // the m-side vectors (replicated in every CTA)
-  float* mv = kRes ? s_mv : a.work + (size_t)blockIdx.x * kMVecs * m;
+  float* mv = kRes ? s_mv : ws;
   float* s_dy = mv;           // y deltas
   float* s_dsy = mv + m;      // y delta sums
   float* s_rhs = mv + 2 * m;  // the exchanged A u, then drhs
@@ -318,13 +222,7 @@ delta_cluster_kernel(Args a) {
 
   if (kRes) {  // the launch's one load of this CTA's operands
     // the slices' pad columns [ncol, nc) hold zeros
-    for (int e = tid; e < m * nc; e += kThreads) {
-      const int i = e / nc, j = e - i * nc;
-      if (j < ncol)
-        cp_async4(s_A + (size_t)i * nc + j, gA + (size_t)i * n + c0 + j);
-      else
-        s_A[(size_t)i * nc + j] = 0.f;
-    }
+    cluster_ops::load_slice(s_A, nc, gA + c0, n, m, ncol);
     for (int e = tid; e < m * m; e += kThreads) {  // transposed
       const int i = e / m, k = e - i * m;
       cp_async4(s_Ninv + (size_t)k * m + i, gNinv + e);
@@ -339,7 +237,7 @@ delta_cluster_kernel(Args a) {
           s_x[(size_t)k * nc + j] = 0.f;
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    cluster_ops::cp_async_commit();
   }
   for (int j = tid; j < (kRes ? nc : ncol); j += kThreads) {
     dx[j] = 0.f; dvx[j] = 0.f; dsx[j] = 0.f; dsvx[j] = 0.f;
@@ -348,7 +246,7 @@ delta_cluster_kernel(Args a) {
   for (int i = tid; i < m; i += kThreads) {
     s_dy[i] = 0.f; s_dsy[i] = 0.f; s_rhs[i] = 0.f;  // A u = 0 at u = 0
   }
-  if (kRes) asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  if (kRes) cluster_ops::cp_async_wait();
   // every CTA of the cluster has started and loaded before any reads
   // another's shared memory
   cluster_ops::sync();
@@ -371,9 +269,9 @@ delta_cluster_kernel(Args a) {
     cluster_ops::sync();
     for (int i = tid; i < m + 1; i += kThreads) {
       if (i < m)
-        s_ah[i] = cluster_ops::rank_sum(part, i, C);
+        s_ah[i] = cluster_ops::rank_sum(part, i, C, peer);
       else
-        s_sums[0] = cluster_ops::rank_sum(slot, 0, C);
+        s_sums[0] = cluster_ops::rank_sum(slot, 0, C, peer);
     }
     __syncthreads();
     hg = s_sums[0];
@@ -471,9 +369,9 @@ delta_cluster_kernel(Args a) {
     cluster_ops::sync();
     for (int i = tid; i < m + 2; i += kThreads) {
       if (i < m)
-        s_rhs[i] = cluster_ops::rank_sum(part, i, C);
+        s_rhs[i] = cluster_ops::rank_sum(part, i, C, peer);
       else
-        s_sums[i - m] = cluster_ops::rank_sum(slot, i - m, C);
+        s_sums[i - m] = cluster_ops::rank_sum(slot, i - m, C, peer);
     }
     __syncthreads();
     e ^= 1;
@@ -542,11 +440,11 @@ delta_cluster_kernel(Args a) {
     float r[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int i = tid; i < m + kRed; i += kThreads) {
       if (i >= m) {
-        s_sums[i - m] = cluster_ops::rank_sum(slot, i - m, C);
+        s_sums[i - m] = cluster_ops::rank_sum(slot, i - m, C, peer);
         continue;
       }
-      const float axs[2] = {cluster_ops::rank_sum(part, i, C),
-                            cluster_ops::rank_sum(part + m, i, C)};
+      const float axs[2] = {cluster_ops::rank_sum(part, i, C, peer),
+                            cluster_ops::rank_sum(part + m, i, C, peer)};
       const float ys[2] = {s_dy[i], s_zy[i]};
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
@@ -616,54 +514,16 @@ delta_cluster_kernel(Args a) {
   cluster_ops::sync();
 }
 
-template <bool kRes>
-cudaError_t configure(int C, int smem, cudaLaunchConfig_t* cfg,
-                      cudaLaunchAttribute* attr, int B, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      delta_cluster_kernel<kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  if (C > 8) {
-    err = cudaFuncSetAttribute(delta_cluster_kernel<kRes>,
-                               cudaFuncAttributeNonPortableClusterSizeAllowed,
-                               1);
-    if (err != cudaSuccess) return err;
+// the kernel of (resident, spill)
+inline void (*kernel_of(int resident, int spill))(Args) {
+  switch (cluster_ops::form_of(resident, spill)) {
+    case cluster_ops::kResident:
+      return delta_cluster_kernel<cluster_ops::kResident>;
+    case cluster_ops::kStreaming:
+      return delta_cluster_kernel<cluster_ops::kStreaming>;
+    default:
+      return delta_cluster_kernel<cluster_ops::kSpilled>;
   }
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg->gridDim = dim3(B * C);
-  cfg->blockDim = dim3(kThreads);
-  cfg->dynamicSmemBytes = smem;
-  cfg->stream = static_cast<cudaStream_t>(stream);
-  cfg->attrs = attr;
-  cfg->numAttrs = 1;
-  return cudaSuccess;
-}
-
-template <bool kRes>
-int max_active(int m, int n, int C, int* clusters) {
-  const int nc = cols_per_cta(n, C);
-  const int smem = (int)(smem_floats(m, nc, kRes) * sizeof(float));
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = configure<kRes>(C, smem, &cfg, attr, 1, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveClusters(clusters,
-                                             delta_cluster_kernel<kRes>, &cfg);
-}
-
-template <bool kRes>
-int launch(const Args& a, int B, int C, void* stream) {
-  const int smem = (int)(smem_floats(a.m, a.nc, kRes) * sizeof(float));
-  cudaLaunchConfig_t cfg = {};
-  cudaLaunchAttribute attr[1];
-  cudaError_t err = configure<kRes>(C, smem, &cfg, attr, B, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, delta_cluster_kernel<kRes>, a);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -672,14 +532,17 @@ extern "C" {
 
 // Dynamic shared memory of one CTA for shape (m, n) in clusters of C CTAs,
 // resident (A's slice, Ninv, the x-side slices and the m-side state in
-// shared memory) or not.
-long long abip_delta_smem_bytes(int m, int n, int C, int resident) {
+// shared memory), streaming, or spilled (none).
+long long abip_delta_smem_bytes(int m, int n, int C, int resident, int spill) {
+  if (spill) return 0;
   const int nc = cols_per_cta(n, C);
   return smem_floats(m, nc, resident != 0) * (long long)sizeof(float);
 }
 
-// Floats of global workspace per CTA the streaming form needs.
-long long abip_delta_work_floats(int m) { return (long long)kMVecs * m; }
+// Floats of global workspace per CTA the streaming or spilled form needs.
+long long abip_delta_work_floats(int m, int n, int C, int spill) {
+  return work_floats(m, cols_per_cta(n, C), spill != 0);
+}
 
 int abip_delta_row_width() { return kRowWidth; }
 
@@ -692,22 +555,22 @@ const char* abip_cuda_error_string(int code) {
 // How many clusters of C CTAs of this shape the card holds at once
 // (cudaOccupancyMaxActiveClusters) into *clusters; returns the CUDA error.
 int abip_delta_max_active_clusters(int m, int n, int C, int resident,
-                                   int* clusters) {
-  *clusters = 0;
-  return resident ? max_active<true>(m, n, C, clusters)
-                  : max_active<false>(m, n, C, clusters);
+                                   int spill, int* clusters) {
+  const int smem = (int)abip_delta_smem_bytes(m, n, C, resident, spill);
+  return cluster_ops::max_active(kernel_of(resident, spill), C, smem,
+                                 clusters);
 }
 
 // Launches one chunk over B lanes, one cluster of C CTAs per lane, on
 // `stream`; returns the CUDA error code.  in: the 22 f32 DeltaAnchor
 // operands then t_max (int32, B); out: dy, dx, dvx, dsy, dsx, dsvx, row.
-// All contiguous, lane-major.  work: B * C * abip_delta_work_floats(m)
-// floats for the streaming form (unused when resident).
+// All contiguous, lane-major.  work: B * C * abip_delta_work_floats(...)
+// floats, 16-byte aligned, for the streaming and spilled forms (unused
+// when resident).
 int abip_delta_chunk(void* const* in, void* const* out, void* work, int B,
-                     int m, int n, int probe, int C, int resident,
+                     int m, int n, int probe, int C, int resident, int spill,
                      void* stream) {
-  if (B < 1 || C < 1 || C > cluster_ops::kMaxCluster)
-    return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > cluster_ops::kMaxCluster) return (int)cudaErrorInvalidValue;
   if (!resident && work == nullptr) return (int)cudaErrorInvalidValue;
   Args a;
   for (int k = 0; k < I_TMAX; ++k) a.in[k] = static_cast<const float*>(in[k]);
@@ -718,8 +581,10 @@ int abip_delta_chunk(void* const* in, void* const* out, void* work, int B,
   a.n = n;
   a.nc = cols_per_cta(n, C);
   a.probe = probe;
-  return resident ? launch<true>(a, B, C, stream)
-                  : launch<false>(a, B, C, stream);
+  spill = spill != 0 && !resident;
+  a.wfl = work_floats(m, a.nc, spill != 0);
+  const int smem = (int)abip_delta_smem_bytes(m, n, C, resident, spill);
+  return cluster_ops::launch(kernel_of(resident, spill), a, B, C, smem, stream);
 }
 
 }  // extern "C"

@@ -1,17 +1,18 @@
 // What the conic kernels share (csrc/conic_ladder.cu, csrc/conic_sprint.cu,
-// csrc/conic_delta.cu): block-wide reductions that give every thread the same
-// bits, the A and explicit-inverse products with one vector (which the LP
-// sprints of csrc/admm_sprint.cu use too), the cone-block walk, the f32 cone
-// prox formulas of `abip_tpu_torch/ops/conic_dr.py`, and one lane's f32 DR
-// iteration with its inner criterion (`DrLane`).
+// and for its cone formulas csrc/conic_delta.cu): block-wide reductions that
+// give every thread the same bits, the A and explicit-inverse products with
+// one vector, the cone-block walk, the f32 cone prox formulas of
+// `abip_tpu_torch/ops/conic_dr.py`, and one lane's f32 DR iteration with its
+// inner criterion (`DrLane`).
 //
-// Every kernel runs one block of kThreads threads per lane.  A lane's A
-// (m x n) and its explicit inverse stay in device memory and are read
-// through L2; the vectors live in shared memory.  Products with one vector
-// have no tensor-core work:
+// The ladder and the sprint run one block of kThreads threads per lane.  A
+// lane's A (m x n) and its explicit inverse stay in device memory and are
+// read through L2; the vectors live in shared memory.  Products with one
+// vector have no tensor-core work:
 //   * M v, one warp per row (coalesced along the row; v from shared memory);
 //   * M' v, one thread per column (coalesced across the warp).
-// No library call computes any of them.
+// No library call computes any of them.  (csrc/conic_delta.cu runs a
+// cluster per lane with csrc/cluster_common.cuh instead.)
 //
 // Numerics: plain IEEE f32 `sqrtf` and `/`, and `isnan` (the RSOC delta uses
 // NaN as a branch-mismatch sentinel): build without -use_fast_math and without
@@ -265,6 +266,38 @@ __host__ __device__ constexpr long long dr_smem_floats(int m, int n, int nb) {
 
 // Widest block reduction of `err_inner` (and of the ladder's error ratio).
 constexpr int kDrRed = 6;
+
+// Floats of a lane's layout with its reduction scratch: its dynamic shared
+// memory, or, in the spilled form (where a block's shared memory does not
+// hold it), its slice of a global workspace, 16-byte padded.
+__host__ __device__ constexpr long long dr_layout_floats(int m, int n, int nb) {
+  return dr_smem_floats(m, n, nb) + (long long)kWarps * kDrRed;
+}
+__host__ __device__ constexpr long long dr_work_floats(int m, int n, int nb) {
+  return (dr_layout_floats(m, n, nb) + 3) / 4 * 4;
+}
+
+// Where lane b's layout lies: in shared memory, or spilled in its slice of
+// the global workspace.  The iteration reads it alike; kSpill is a template
+// argument so that the shared form's addresses keep their state space.
+template <bool kSpill>
+__device__ __forceinline__ float* dr_layout(float* smem, float* work, int m, int n, int nb) {
+  return kSpill ? work + (size_t)blockIdx.x * dr_work_floats(m, n, nb) : smem;
+}
+
+// The launch of a kernel of one block per lane over B lanes: `smem` bytes
+// of dynamic shared memory, or none when spilled (work not null; `kernel`
+// is then the spilled kernel).
+template <typename Kernel, typename Args>
+int dr_launch(Kernel kernel, const Args& a, int B, const void* work, void* stream) {
+  const int smem =
+      work ? 0 : (int)(dr_layout_floats(a.m, a.n, a.cones.nb) * (long long)sizeof(float));
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
 
 struct DrLane {
   // shared memory: the iterate, the projection's scratch, the block scalars

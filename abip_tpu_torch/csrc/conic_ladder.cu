@@ -14,8 +14,10 @@
 // mu < mu_stop or at t_max.
 //
 // Layout.  Block b owns lane b; the vectors of the iteration live in shared
-// memory (~13 rows of m or n floats, 25 KB at m=340, n=1020).  A lane's A
-// (1.39 MB at that shape) and its explicit inverse G^-1 (m x m, Woodbury
+// memory (~13 rows of m or n floats, 25 KB at m=340, n=1020).  Where a
+// block's shared memory does not hold them, the spilled form keeps them in
+// the lane's slice of a global workspace (`conic::dr_layout`), read alike.
+// A lane's A (1.39 MB at that shape) and its explicit inverse G^-1 (m x m, Woodbury
 // form) or S^-1 (n x n, primal form) stay in device memory and are read
 // through L2.  Per iteration in the Woodbury form: A'wy, A t, G^-1 (A t),
 // A'u and A zx, four A passes and one G^-1 pass; per trip four more A passes
@@ -54,6 +56,7 @@ struct Args {
   const int* t_max;
   Cones cones;
   float* out[O_COUNT];
+  float* work;  // spilled form: dr_work_floats floats per lane, else null
   int m, n, probe, woodbury;
   float psi;
 };
@@ -83,7 +86,10 @@ __device__ __forceinline__ void adjust_barrier(float mu, float err_ratio, float 
   *tol = gamma * gm * (psi == 1.0f ? mn : powf(mn, psi));
 }
 
-__global__ void __launch_bounds__(kThreads) conic_ladder_kernel(Args a) {
+// One lane, its vectors in shared memory or (kSpill) in its slice of the
+// global workspace.
+template <bool kSpill>
+__device__ __forceinline__ void ladder_lane(Args a) {
   extern __shared__ float smem[];
   const int m = a.m, n = a.n, probe = a.probe;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -105,8 +111,8 @@ __global__ void __launch_bounds__(kThreads) conic_ladder_kernel(Args a) {
   L.a_coef = sc[L_ACOEF];
   L.alpha = sc[L_ALPHA];
   L.k0 = sc[L_K0];
-  L.init(smem, a.in[I_Y] + b * m, a.in[I_X] + b * n, a.in[I_VY] + b * m,
-         a.in[I_VX] + b * n, sc[L_TAU], sc[L_KAPPA]);
+  L.init(dr_layout<kSpill>(smem, a.work, m, n, a.cones.nb), a.in[I_Y] + b * m,
+         a.in[I_X] + b * n, a.in[I_VY] + b * m, a.in[I_VX] + b * n, sc[L_TAU], sc[L_KAPPA]);
   float* s_y = L.s_y;
   float* s_wy = L.s_wy;  // y / tau
   float* s_x = L.s_x;
@@ -191,13 +197,28 @@ __global__ void __launch_bounds__(kThreads) conic_ladder_kernel(Args a) {
   }
 }
 
+// The two forms as kernels of their own, each bounded to one block of
+// kThreads per SM: without the bound ptxas built K4's shared form with 32
+// registers and spills, 1.7x slower on an H100.
+__global__ void __launch_bounds__(kThreads, 1) conic_ladder_kernel(Args a) {
+  ladder_lane<false>(a);
+}
+__global__ void __launch_bounds__(kThreads, 1) conic_ladder_spilled_kernel(Args a) {
+  ladder_lane<true>(a);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one lane of shape (m, n) with nb cone blocks needs.
 long long abip_conic_ladder_smem_bytes(int m, int n, int nb) {
-  return (dr_smem_floats(m, n, nb) + (long long)kWarps * kDrRed) * sizeof(float);
+  return dr_layout_floats(m, n, nb) * (long long)sizeof(float);
+}
+
+// Floats of global workspace per lane the spilled form needs.
+long long abip_conic_ladder_work_floats(int m, int n, int nb) {
+  return dr_work_floats(m, n, nb);
 }
 
 int abip_row_width() { return kRowWidth; }
@@ -207,8 +228,10 @@ const char* abip_cuda_error_string(int code) { return cudaGetErrorString((cudaEr
 // Launches the ladder over B lanes on `stream`; returns the CUDA error code.
 // in: the 15 f32 LadderOperands, t_max (int32, B), then the int32 cone rows
 // code, blk (n) and start, length, soc (nb); out: y, x, vy, vx, row.  All
-// contiguous, lane-major.
-int abip_conic_ladder(void* const* in, void* const* out, int B, int m, int n, int nb,
+// contiguous, lane-major.  work: B * abip_conic_ladder_work_floats(m, n, nb)
+// floats for the spilled form, where a block's shared memory does not hold
+// the lane's layout; null otherwise.
+int abip_conic_ladder(void* const* in, void* const* out, void* work, int B, int m, int n, int nb,
                       int probe, float psi, int woodbury, void* stream) {
   Args a;
   for (int k = 0; k < I_TMAX; ++k) a.in[k] = static_cast<const float*>(in[k]);
@@ -225,12 +248,9 @@ int abip_conic_ladder(void* const* in, void* const* out, int B, int m, int n, in
   a.probe = probe;
   a.woodbury = woodbury;
   a.psi = psi;
-  const int smem = (int)abip_conic_ladder_smem_bytes(m, n, nb);
-  cudaError_t err = cudaFuncSetAttribute(conic_ladder_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  conic_ladder_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.work = static_cast<float*>(work);
+  return work ? dr_launch(conic_ladder_spilled_kernel, a, B, work, stream)
+              : dr_launch(conic_ladder_kernel, a, B, work, stream);
 }
 
 }  // extern "C"

@@ -13,7 +13,8 @@
 //
 // Layout, residency and bound are the ladder's (csrc/conic_ladder.cu): the
 // iteration and the criterion are `conic::DrLane` of conic_common.cuh; the
-// vectors in shared memory, A and G^-1 (Woodbury) or S^-1 (primal) read
+// vectors in shared memory (spilled: a global workspace), A and G^-1
+// (Woodbury) or S^-1 (primal) read
 // through L2, four A passes and one G^-1 pass per Woodbury iteration and two
 // more A passes per trip.  The A passes through L2 into ONE SM per lane bound
 // it, with B=16 lanes busy on 16 of the H100's 132 SMs.
@@ -42,10 +43,14 @@ struct Args {
   const int* t_max;
   Cones cones;
   float* out[O_COUNT];
+  float* work;  // spilled form: dr_work_floats floats per lane, else null
   int m, n, probe, woodbury;
 };
 
-__global__ void __launch_bounds__(kThreads) conic_sprint_kernel(Args a) {
+// One lane, its vectors in shared memory or (kSpill) in its slice of the
+// global workspace.
+template <bool kSpill>
+__device__ __forceinline__ void sprint_lane(Args a) {
   extern __shared__ float smem[];
   const int m = a.m, n = a.n, probe = a.probe;
   const size_t b = blockIdx.x;
@@ -66,8 +71,8 @@ __global__ void __launch_bounds__(kThreads) conic_sprint_kernel(Args a) {
   L.a_coef = sc[C_ACOEF];
   L.alpha = sc[C_ALPHA];
   L.k0 = sc[C_K0];
-  L.init(smem, a.in[I_Y] + b * m, a.in[I_X] + b * n, a.in[I_VY] + b * m,
-         a.in[I_VX] + b * n, sc[C_TAU], sc[C_KAPPA]);
+  L.init(dr_layout<kSpill>(smem, a.work, m, n, a.cones.nb), a.in[I_Y] + b * m,
+         a.in[I_X] + b * n, a.in[I_VY] + b * m, a.in[I_VX] + b * n, sc[C_TAU], sc[C_KAPPA]);
   const float lam = sc[C_LAM], thresh = sc[C_THRESH];
   const int t_max = a.t_max[b];
 
@@ -86,13 +91,28 @@ __global__ void __launch_bounds__(kThreads) conic_sprint_kernel(Args a) {
   }
 }
 
+// The two forms as kernels of their own, each bounded to one block of
+// kThreads per SM: without the bound ptxas built K4's shared form with 32
+// registers and spills, 1.7x slower on an H100.
+__global__ void __launch_bounds__(kThreads, 1) conic_sprint_kernel(Args a) {
+  sprint_lane<false>(a);
+}
+__global__ void __launch_bounds__(kThreads, 1) conic_sprint_spilled_kernel(Args a) {
+  sprint_lane<true>(a);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one lane of shape (m, n) with nb cone blocks needs.
 long long abip_conic_sprint_smem_bytes(int m, int n, int nb) {
-  return (dr_smem_floats(m, n, nb) + (long long)kWarps * kDrRed) * sizeof(float);
+  return dr_layout_floats(m, n, nb) * (long long)sizeof(float);
+}
+
+// Floats of global workspace per lane the spilled form needs.
+long long abip_conic_sprint_work_floats(int m, int n, int nb) {
+  return dr_work_floats(m, n, nb);
 }
 
 int abip_row_width() { return kRowWidth; }
@@ -102,8 +122,10 @@ const char* abip_cuda_error_string(int code) { return cudaGetErrorString((cudaEr
 // Launches the sprint over B lanes on `stream`; returns the CUDA error code.
 // in: the 13 f32 DrSprintOperands, t_max (int32, B), then the int32 cone rows
 // code, blk (n) and start, length, soc (nb); out: y, x, vy, vx, row.  All
-// contiguous, lane-major.  `psi` is not used (the barrier is fixed).
-int abip_conic_sprint(void* const* in, void* const* out, int B, int m, int n, int nb,
+// contiguous, lane-major.  work: B * abip_conic_sprint_work_floats(m, n, nb)
+// floats for the spilled form, where a block's shared memory does not hold
+// the lane's layout; null otherwise.  `psi` is not used (the barrier is fixed).
+int abip_conic_sprint(void* const* in, void* const* out, void* work, int B, int m, int n, int nb,
                       int probe, float psi, int woodbury, void* stream) {
   (void)psi;
   Args a;
@@ -120,12 +142,9 @@ int abip_conic_sprint(void* const* in, void* const* out, int B, int m, int n, in
   a.n = n;
   a.probe = probe;
   a.woodbury = woodbury;
-  const int smem = (int)abip_conic_sprint_smem_bytes(m, n, nb);
-  cudaError_t err = cudaFuncSetAttribute(conic_sprint_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  conic_sprint_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  a.work = static_cast<float*>(work);
+  return work ? dr_launch(conic_sprint_spilled_kernel, a, B, work, stream)
+              : dr_launch(conic_sprint_kernel, a, B, work, stream);
 }
 
 }  // extern "C"

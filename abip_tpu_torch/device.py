@@ -7,6 +7,8 @@ A caller asks for the CPU with `device="cpu"`, as the tests do.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -19,3 +21,29 @@ def resolve_device(device=None) -> torch.device:
             "abip_tpu_torch runs on a CUDA card by default and none is "
             "visible; pass device='cpu' to run on the CPU")
     return dev
+
+
+_SMEM_CAP = [None]
+
+
+def smem_optin(device) -> int:
+    """The shared memory one thread block may use on a CUDA `device`
+    (`sharedMemPerBlockOptin`), or less under `limit_shared_memory`:
+    what the kernels' launch plans weigh a CTA against."""
+    card = torch.cuda.get_device_properties(
+        torch.device(device)).shared_memory_per_block_optin
+    return card if _SMEM_CAP[0] is None else min(card, _SMEM_CAP[0])
+
+
+@contextlib.contextmanager
+def limit_shared_memory(nbytes):
+    """Within the block, the launch plans see at most `nbytes` of shared
+    memory per block, so that the kernels take the forms they take for
+    shapes the card's shared memory does not hold (streaming, spilled)
+    at any shape: how the card tests and the smoke check those forms."""
+    old = _SMEM_CAP[0]
+    _SMEM_CAP[0] = int(nbytes)
+    try:
+        yield
+    finally:
+        _SMEM_CAP[0] = old

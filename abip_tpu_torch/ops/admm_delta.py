@@ -39,6 +39,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import smem_optin
+
 f32 = torch.float32
 f64 = torch.float64
 
@@ -228,13 +230,19 @@ _M_VECS = 5
 
 
 class DeltaPlan(NamedTuple):
-    """How one chunk launches: `cluster` CTAs per lane; `resident`: A's
-    column slice, Ninv and the x-side slices live in each CTA's shared
-    memory (else they are read through L2); `smem_bytes` per CTA."""
+    """How one chunk of a cluster kernel (K1 here, K6 and K7 in
+    `ops/admm_sprint.py`, K3 in `ops/conic_delta.py`) launches:
+    `cluster` CTAs per lane; `resident`: A's column slice, Ninv and the
+    x-side slices live in each CTA's shared memory (else they are read
+    through L2); `smem_bytes` per CTA; `spill`: the streaming form with
+    its shared-memory layout (the exchange buffers included) in a global
+    workspace, for shapes whose CTA no shared memory holds
+    (`smem_bytes` 0)."""
 
     cluster: int
     resident: bool
     smem_bytes: int
+    spill: bool = False
 
 
 def delta_cols_per_cta(n, cluster):
@@ -243,33 +251,67 @@ def delta_cols_per_cta(n, cluster):
     return -(-(-(-n // cluster)) // 4) * 4
 
 
-def delta_smem_bytes(m, n, cluster, resident):
-    """Dynamic shared memory of one CTA (`csrc/admm_delta.cu:smem_floats`):
-    two exchange buffers of 2 m, the reduction scratch, the row dots' x
-    operand (nc = `delta_cols_per_cta`), and where resident the 5 m-side
-    vectors, A's slice (m nc), Ninv (m^2) and the 17 x-side slices."""
+def cluster_smem_bytes(m, n, cluster, resident, x_slices, m_vecs):
+    """Dynamic shared memory of one CTA of the LP cluster kernels
+    (`csrc/admm_delta.cu:smem_floats`, `csrc/admm_sprint.cu`): two
+    exchange buffers of 2 m, the reduction scratch, the row dots' x
+    operand (nc = `delta_cols_per_cta`), and where resident the
+    `m_vecs` m-side vectors, A's slice (m nc), Ninv (m^2) and the
+    `x_slices` x-side slices."""
     nc = delta_cols_per_cta(n, cluster)
     floats = 4 * m + _SCRATCH_FLOATS + nc
     if resident:
-        floats += _M_VECS * m + m * nc + m * m + _X_SLICES * nc
+        floats += m_vecs * m + m * nc + m * m + x_slices * nc
     return 4 * floats
+
+
+def cluster_plan(m, n, smem_limit, x_slices, m_vecs, cluster=CLUSTER):
+    """The launch of an LP cluster kernel at shape (m, n): clusters of
+    `cluster` CTAs, resident if that fits `smem_limit`, else streaming
+    A, Ninv and the x-side operands through L2, else spilled (the
+    streaming form with its layout in global memory), which takes every
+    shape."""
+    if m < 1 or n < 1:
+        raise ValueError(f"empty chunk: m={m} n={n}")
+    for resident in (True, False):
+        nbytes = cluster_smem_bytes(m, n, cluster, resident, x_slices, m_vecs)
+        if nbytes <= smem_limit:
+            return DeltaPlan(cluster, resident, nbytes)
+    return DeltaPlan(cluster, False, 0, spill=True)
+
+
+def delta_smem_bytes(m, n, cluster, resident):
+    """Dynamic shared memory of one CTA of K1 (`cluster_smem_bytes` with
+    its 17 x-side slices and 5 m-side vectors)."""
+    return cluster_smem_bytes(m, n, cluster, resident, _X_SLICES, _M_VECS)
 
 
 def delta_launch_plan(m, n, smem_limit=SMEM_OPTIN):
     """The launch of a chunk of shape (m, n): clusters of CLUSTER CTAs,
     resident if that fits `smem_limit`, else streaming A, Ninv and the
-    x-side operands through L2.  Raises where even the streaming form
-    does not fit (it needs less than one block per lane needed: n + 5 m
-    floats and the scratch)."""
-    if m < 1 or n < 1:
-        raise ValueError(f"empty chunk: m={m} n={n}")
-    for resident in (True, False):
-        nbytes = delta_smem_bytes(m, n, CLUSTER, resident)
-        if nbytes <= smem_limit:
-            return DeltaPlan(CLUSTER, resident, nbytes)
-    raise ValueError(
-        f"shape m={m} n={n} needs {nbytes} B of shared memory per CTA even "
-        f"with A streamed through L2; this card allows {smem_limit}")
+    x-side operands through L2 (it needs less than one block per lane
+    needed: n + 5 m floats and the scratch), else spilled.  Where the
+    reference runs its XLA chunk because its kernel does not fit VMEM,
+    the port's kernel spills."""
+    return cluster_plan(m, n, smem_limit, _X_SLICES, _M_VECS)
+
+
+def check_plan(plan: DeltaPlan, limit):
+    """Raise unless the card can take `plan`: 1-CLUSTER_MAX CTAs, and the
+    shared memory of a CTA within `limit`."""
+    if not 1 <= plan.cluster <= CLUSTER_MAX or plan.smem_bytes > limit or (
+            plan.spill and (plan.resident or plan.smem_bytes)):
+        raise ValueError(f"plan {plan} outside clusters of 1-{CLUSTER_MAX} "
+                         f"CTAs and {limit} B of shared memory")
+
+
+def cluster_workspace(lib_fn, B, plan: DeltaPlan, dev, *shape):
+    """The global workspace of a streaming or spilled launch
+    (`lib_fn(*shape, cluster, spill)` floats per CTA), or None."""
+    if plan.resident:
+        return None
+    per_cta = lib_fn(*shape, plan.cluster, int(plan.spill))
+    return torch.empty((B * plan.cluster * per_cta,), dtype=f32, device=dev)
 
 
 @functools.lru_cache(maxsize=None)
@@ -280,14 +322,15 @@ def _kernel_lib():
     lib.abip_delta_chunk.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     lib.abip_delta_chunk.restype = ctypes.c_int
-    lib.abip_delta_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.abip_delta_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.abip_delta_smem_bytes.restype = ctypes.c_longlong
-    lib.abip_delta_work_floats.argtypes = [ctypes.c_int]
+    lib.abip_delta_work_floats.argtypes = [ctypes.c_int] * 4
     lib.abip_delta_work_floats.restype = ctypes.c_longlong
     lib.abip_delta_max_active_clusters.argtypes = [
-        ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     lib.abip_delta_max_active_clusters.restype = ctypes.c_int
     for fn in (lib.abip_delta_row_width, lib.abip_delta_threads):
         fn.argtypes = []
@@ -298,7 +341,7 @@ def _kernel_lib():
         raise RuntimeError("csrc/admm_delta.cu and its wrapper disagree on "
                            "the output row width")
     if (lib.abip_delta_threads() != THREADS
-            or lib.abip_delta_work_floats(1) != _M_VECS):
+            or lib.abip_delta_work_floats(4, 1, 1, 0) != 4 * _M_VECS):
         raise RuntimeError("csrc/admm_delta.cu and its wrapper disagree on "
                            "the threads or the workspace per CTA")
     return lib
@@ -317,7 +360,8 @@ def delta_max_active_clusters(m, n, plan: DeltaPlan, device_index=0):
     out = ctypes.c_int(0)
     with torch.cuda.device(device_index):
         err = lib.abip_delta_max_active_clusters(
-            m, n, plan.cluster, int(plan.resident), ctypes.byref(out))
+            m, n, plan.cluster, int(plan.resident), int(plan.spill),
+            ctypes.byref(out))
     if err:
         raise _cuda_error(lib, "admm_delta occupancy query failed", err)
     return out.value
@@ -327,9 +371,9 @@ def delta_chunk_cuda(anc: DeltaAnchor, t_max, probe, plan=None):
     """The chunk on the card: one launch of `csrc/admm_delta.cu`, one
     thread-block cluster per lane, by `delta_launch_plan`.  Same contract
     as `_delta_compute`.  `plan` replaces the launch plan, to time other
-    cluster sizes; the solvers never pass it.  Raises on an operand the
-    kernel does not take, on a plan the card cannot hold and on a refused
-    launch; never falls back."""
+    cluster sizes and check other forms; the solvers never pass it.
+    Raises on an operand the kernel does not take, on a plan the card
+    cannot hold and on a refused launch; never falls back."""
     B, m, n = anc.A.shape
     dev = anc.A.device
     if dev.type != "cuda":
@@ -347,15 +391,13 @@ def delta_chunk_cuda(anc: DeltaAnchor, t_max, probe, plan=None):
     t_max = t_max.to(device=dev, dtype=torch.int32).contiguous()
     if tuple(t_max.shape) != (B,):
         raise ValueError(f"t_max must be ({B},); got {tuple(t_max.shape)}")
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    limit = smem_optin(dev)
     if plan is None:
         plan = delta_launch_plan(m, n, limit)
-    elif not 1 <= plan.cluster <= CLUSTER_MAX or plan.smem_bytes > limit:
-        raise ValueError(f"plan {plan} outside clusters of 1-{CLUSTER_MAX} "
-                         f"CTAs and {limit} B of shared memory")
+    check_plan(plan, limit)
     lib = _kernel_lib()
-    if lib.abip_delta_smem_bytes(m, n, plan.cluster,
-                                 int(plan.resident)) != plan.smem_bytes:
+    if lib.abip_delta_smem_bytes(m, n, plan.cluster, int(plan.resident),
+                                 int(plan.spill)) != plan.smem_bytes:
         raise RuntimeError("csrc/admm_delta.cu and its wrapper disagree on "
                            "the shared memory of a CTA")
     if delta_max_active_clusters(m, n, plan, dev.index or 0) < 1:
@@ -367,14 +409,15 @@ def delta_chunk_cuda(anc: DeltaAnchor, t_max, probe, plan=None):
     ins = (ctypes.c_void_p * (len(anc) + 1))(
         *[x.data_ptr() for x in anc], t_max.data_ptr())
     outp = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
-    # the streaming form keeps each CTA's m-side vectors in global memory
-    work = None if plan.resident else torch.empty(
-        (B * plan.cluster * _M_VECS * m,), dtype=f32, device=dev)
+    # the streaming form keeps each CTA's m-side vectors in global
+    # memory, the spilled form its whole layout
+    work = cluster_workspace(lib.abip_delta_work_floats, B, plan, dev, m, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.abip_delta_chunk(
             ins, outp, None if work is None else work.data_ptr(), B, m, n,
-            probe, plan.cluster, int(plan.resident), ctypes.c_void_p(stream))
+            probe, plan.cluster, int(plan.resident), int(plan.spill),
+            ctypes.c_void_p(stream))
     if err:
         raise _cuda_error(lib, "admm_delta kernel launch failed", err)
     delta_chunk_cuda.launches += 1
@@ -532,7 +575,10 @@ def run_delta_chunk(A64, solve64, h, g, g_th, rho_y, lam, alpha, thresh,
 
     `active` (`(B,)` bool) gives inactive lanes zero iterations.  On CPU
     tensors the chunk runs the plain version; on CUDA tensors it
-    launches the kernel, or raises."""
+    launches the kernel, in the form `delta_launch_plan` picks (where
+    the reference's `pallas_fits` gate, `abip_tpu/ops/admm_delta.py:
+    536-549`, runs its XLA chunk, the kernel spills).  A build failure or
+    a refused launch raises."""
     B, m, n = A64.shape
     if A64.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no delta chunk for device {A64.device}")
@@ -559,3 +605,4 @@ def run_delta_chunk(A64, solve64, h, g, g_th, rho_y, lam, alpha, thresh,
         [torch.zeros_like(u[:, :m]), dsvx.to(f64), dskap[:, None]], dim=1)
     return DeltaResult(u=u_new, v=v_new, u_sum=u_sum_new, v_sum=v_sum_new,
                        t_done=t_done, qres=q, avg_crit=avg_crit)
+

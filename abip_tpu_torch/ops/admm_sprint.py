@@ -15,8 +15,10 @@ back-substitution, barrier prox, dual update; `abip.c:539-584`,
 
 `_sprint_compute` is the plain PyTorch version of both (CPU tensors,
 and the reference the kernel is held to); `csrc/admm_sprint.cu` is the
-CUDA kernel.  The entries take the plain version on CPU tensors and the
-kernel on CUDA tensors, or raise; they never fall back.
+CUDA kernel, one thread-block cluster per lane on K1's plan
+(`sprint_launch_plan`; spilled to a global workspace where no shared
+memory holds a CTA, so that it takes every shape).  The entries take the
+plain version on CPU tensors and the kernel on CUDA tensors.
 
 The barrier prox takes the cancellation-free form for t < 0,
 2 lam / (sqrt(t^2 + 4 lam) - t).  The reference's form divides by
@@ -36,7 +38,10 @@ from typing import NamedTuple
 
 import torch
 
-from .admm_delta import _mv, _per_lane, _rmv
+from ..device import smem_optin
+from .admm_delta import (SMEM_OPTIN, THREADS, DeltaPlan, _cuda_error, _mv,
+                         _per_lane, _rmv, check_plan, cluster_plan,
+                         cluster_smem_bytes, cluster_workspace)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -149,31 +154,78 @@ def _sprint_compute(op: SprintOperands, t_max, probe):
     return y, x, vx, torch.cat([tau, kappa, q, t.to(q.dtype)], dim=1)
 
 
+# The kernels' launch: K1's cluster plan (`ops/admm_delta.cluster_plan`)
+# with this kernel's slices: a resident CTA holds hx, gx, the mask, x and
+# vx (5 x-side slices) and y, vy, the rhs and z_y (4 m-vectors).
+SPRINT_CLUSTER = 6
+_X_SLICES = 5
+_M_VECS = 4
+
+
+def sprint_smem_bytes(m, n, cluster, resident):
+    """Dynamic shared memory of one CTA of K6 and K7
+    (`csrc/admm_sprint.cu:smem_floats`)."""
+    return cluster_smem_bytes(m, n, cluster, resident, _X_SLICES, _M_VECS)
+
+
+def sprint_launch_plan(m, n, smem_limit=SMEM_OPTIN):
+    """The launch of a sprint of shape (m, n): clusters of SPRINT_CLUSTER
+    CTAs, resident if that fits `smem_limit`, else streaming A, Ninv
+    and the x-side operands through L2, else spilled (at m=15,000 the
+    streaming form's exchange buffers alone, 4 m floats, exceed an
+    H100's shared memory).  Where the reference runs its XLA sprint
+    because its kernel does not fit VMEM, the port's kernels spill."""
+    return cluster_plan(m, n, smem_limit, _X_SLICES, _M_VECS, SPRINT_CLUSTER)
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel_lib():
     from .build import load
 
     lib = load("admm_sprint").lib
-    for name in ("abip_sprint", "abip_sprint_stop"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.abip_sprint_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.abip_sprint.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.abip_sprint.restype = ctypes.c_int
+    lib.abip_sprint_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.abip_sprint_smem_bytes.restype = ctypes.c_longlong
-    lib.abip_sprint_row_width.argtypes = []
-    lib.abip_sprint_row_width.restype = ctypes.c_int
+    lib.abip_sprint_work_floats.argtypes = [ctypes.c_int] * 4
+    lib.abip_sprint_work_floats.restype = ctypes.c_longlong
+    lib.abip_sprint_max_active_clusters.argtypes = [
+        ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.abip_sprint_max_active_clusters.restype = ctypes.c_int
+    for fn in (lib.abip_sprint_row_width, lib.abip_sprint_threads):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.abip_cuda_error_string.argtypes = [ctypes.c_int]
     lib.abip_cuda_error_string.restype = ctypes.c_char_p
-    if lib.abip_sprint_row_width() != ROW_WIDTH:
+    if (lib.abip_sprint_row_width() != ROW_WIDTH
+            or lib.abip_sprint_threads() != THREADS
+            or lib.abip_sprint_work_floats(4, 1, 1, 0) != 4 * _M_VECS):
         raise RuntimeError("csrc/admm_sprint.cu and its wrapper disagree on "
-                           "the output row width")
+                           "the output row, the threads or the workspace")
     return lib
 
 
-def _launch(op: SprintOperands, t_max, probe):
+@functools.lru_cache(maxsize=None)
+def sprint_max_active_clusters(m, n, plan: DeltaPlan, device_index=0):
+    """How many of the plan's clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters`).  A lane is one cluster; more
+    lanes than this queue."""
+    lib = _kernel_lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.abip_sprint_max_active_clusters(
+            m, n, plan.cluster, int(plan.resident), int(plan.spill),
+            ctypes.byref(out))
+    if err:
+        raise _cuda_error(lib, "admm_sprint occupancy query failed", err)
+    return out.value
+
+
+def _launch(op: SprintOperands, t_max, probe, plan):
     B, m, n = op.A.shape
     dev = op.A.device
     if dev.type != "cuda":
@@ -191,44 +243,58 @@ def _launch(op: SprintOperands, t_max, probe):
     t_max = t_max.to(device=dev, dtype=torch.int32).contiguous()
     if tuple(t_max.shape) != (B,):
         raise ValueError(f"t_max must be ({B},); got {tuple(t_max.shape)}")
+    limit = smem_optin(dev)
+    if plan is None:
+        plan = sprint_launch_plan(m, n, limit)
+    check_plan(plan, limit)
     lib = _kernel_lib()
-    smem = lib.abip_sprint_smem_bytes(m, n)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(f"shape m={m} n={n} needs {smem} B of shared memory "
-                         f"per block; this card allows {limit}")
+    if lib.abip_sprint_smem_bytes(m, n, plan.cluster, int(plan.resident),
+                                  int(plan.spill)) != plan.smem_bytes:
+        raise RuntimeError("csrc/admm_sprint.cu and its wrapper disagree on "
+                           "the shared memory of a CTA")
+    if sprint_max_active_clusters(m, n, plan, dev.index or 0) < 1:
+        raise RuntimeError(
+            f"the card cannot hold one cluster of {plan.cluster} CTAs with "
+            f"{plan.smem_bytes} B of shared memory each (m={m} n={n})")
     outs = [torch.empty((B, k), dtype=f32, device=dev)
             for k in (m, n, n, ROW_WIDTH)]
     ins = (ctypes.c_void_p * (len(op) + 1))(
         *[x.data_ptr() for x in op], t_max.data_ptr())
     outp = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
-    entry = lib.abip_sprint_stop if probe > 0 else lib.abip_sprint
+    # the streaming form keeps each CTA's m-side vectors in global
+    # memory, the spilled form its whole layout
+    work = cluster_workspace(lib.abip_sprint_work_floats, B, plan, dev, m, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = entry(ins, outp, B, m, n, probe, ctypes.c_void_p(stream))
+        err = lib.abip_sprint(
+            ins, outp, None if work is None else work.data_ptr(), B, m, n,
+            probe, plan.cluster, int(plan.resident), int(plan.spill),
+            ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError("admm_sprint kernel launch failed: "
-                           + lib.abip_cuda_error_string(err).decode())
+        raise _cuda_error(lib, "admm_sprint kernel launch failed", err)
     return tuple(outs)
 
 
-def sprint_stop_cuda(op: SprintOperands, t_max, probe):
+def sprint_stop_cuda(op: SprintOperands, t_max, probe, plan=None):
     """The stopping sprint (K6) on the card: one launch of
-    `csrc/admm_sprint.cu` over the lanes.  Same contract as
-    `_sprint_compute` with probe > 0.  Raises on an operand the kernel
-    does not take and on a refused launch; never falls back."""
+    `csrc/admm_sprint.cu`, one thread-block cluster per lane, by
+    `sprint_launch_plan`.  Same contract as `_sprint_compute` with
+    probe > 0.  `plan` replaces the launch plan, to time other cluster
+    sizes and check other forms; the solvers never pass it.  Raises on
+    an operand the kernel does not take, on a plan the card cannot hold
+    and on a refused launch; never falls back."""
     if probe < 1:
         raise ValueError(f"the stopping sprint needs probe >= 1; got {probe}")
-    out = _launch(op, t_max, probe)
+    out = _launch(op, t_max, probe, plan)
     sprint_stop_cuda.launches += 1
     return out
 
 
-def sprint_cuda(op: SprintOperands, t_max):
+def sprint_cuda(op: SprintOperands, t_max, plan=None):
     """The plain sprint (K7) on the card: exactly t_max[b] iterations of
-    lane b, one launch.  Same contract as `_sprint_compute` with
-    probe = 0."""
-    out = _launch(op, t_max, 0)
+    lane b, one launch, the same clusters as K6.  Same contract as
+    `_sprint_compute` with probe = 0."""
+    out = _launch(op, t_max, 0, plan)
     sprint_cuda.launches += 1
     return out
 
@@ -267,6 +333,10 @@ def _lanes(A32, *vecs):
 
 
 def _run(op, t_max, probe, active):
+    """Both sprints' dispatch: the plain version on CPU tensors, the
+    kernel on CUDA tensors (where the reference's `pallas_fits` gate,
+    `abip_tpu/ops/admm_pallas.py:432`, `:501`, runs its XLA sprint, the
+    kernel spills)."""
     B = op.A.shape[0]
     t_max = torch.full((B,), t_max, dtype=torch.int32, device=op.A.device)
     if active is not None:

@@ -22,15 +22,20 @@ entirely in f32:
   delta, sentinel or genuine, with the direct difference.
 
 `_conic_delta_compute` is the plain PyTorch version of the chunk;
-`csrc/conic_delta.cu` is the CUDA kernel; `run_conic_delta_chunk` takes
-the plain version on CPU tensors and the kernel on CUDA tensors, or
-raises.  Layout as in `ops/conic_dr.py`: lane axis first, no padding.
+`csrc/conic_delta.cu` is the CUDA kernel, one thread-block cluster per
+lane (`conic_delta_launch_plan`; spilled to a global workspace where no
+shared memory holds a CTA, so that it takes every shape);
+`run_conic_delta_chunk` takes the plain version on CPU tensors and the
+kernel on CUDA tensors.  Layout as in `ops/conic_dr.py`: lane axis first, no
+padding.
 
 Reference math: SOC/RSOC barrier prox `cones.c:130-248`, orthant
 `cones.c:279-289`, inner criterion `qcp_config.c:518-557`.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,9 +43,12 @@ import torch
 
 from ..cones import (E_RSOC_H1, E_RSOC_H2, E_SOC_H, Blocks, ConeOperands,
                      cone_barrier_prox)
-from .admm_delta import _mv, _per_lane, _rmv
+from ..device import smem_optin
+from .admm_delta import (SMEM_OPTIN, DeltaPlan, _cuda_error, _mv, _per_lane,
+                         _rmv, check_plan, cluster_workspace,
+                         delta_cols_per_cta)
 from .conic_dr import (_bsum, _cone_kernel_inputs, _elementwise_prox, _full,
-                       _need_ieee, _unpad, check_operands, launch, solve_S)
+                       _need_ieee, _unpad, check_operands, solve_S)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -509,12 +517,145 @@ def _conic_delta_compute(anc: ConicDeltaAnchor, co: ConeOperands, t_max, *,
     return dy, dx, dvy, dvx, torch.cat([dtau, dkap, e, t.to(dt)], dim=1)
 
 
+# The kernel's launch: one cluster of C CTAs per lane (csrc/conic_delta.cu).
+# The plans in the order `conic_delta_launch_plan` tries them,
+# (cluster, resident): first the form measured fastest at dim-1020
+# (PERF.md: C=8 with A resident, though an H100 holds only 15 such
+# clusters at once, beats C=6 streaming, which holds 17), last C=16
+# streaming, the least shared memory, which takes every shape the
+# one-block kernel took; past it, C=16 spilled.
+CONIC_DELTA_PLANS = ((8, True), (6, False), (16, False))
+# 384 threads a CTA (a thread may then hold 168 registers); the floats of
+# its reduction scratch (12 warps x 12) and its three exchange slots of 24
+CD_THREADS = 384
+_CD_SCRATCH = (CD_THREADS // 32) * 12 + 3 * 24
+_CD_XOPS = 8     # x-side operand slices a resident CTA holds
+_CD_XSTATE = 4   # dx, dvx, the rhs, dzx
+_CD_MVECS = 5    # m-side vectors besides u (global where streaming)
+_CD_MOPS = 3     # m-side operands a resident CTA holds: ry, e_y, e_vy
+_CD_BLKVALS = 30  # values per cone block that touches a CTA (10, and
+                  # 20 of the anchor's chain)
+
+
+def _al4(x):
+    return -(-x // 4) * 4
+
+
+def conic_delta_smem_bytes(m, n, nb, cluster, resident, woodbury=True):
+    """Dynamic shared memory of one CTA of K3
+    (`csrc/conic_delta.cu:smem_floats`), every array padded to 16 bytes:
+    the scratch, two exchange buffers of m and u, the four x-side state
+    slices of nc = `delta_cols_per_cta` columns, the direct form's whole
+    rhs (n), thirty values per cone block that touches the CTA (at most
+    min(nb, nc)), the split column dots' partials (max(nc, 384));
+    resident, the five other m-side vectors and three m-side operands,
+    A's slice (its rows at a stride of 4 mod 8 floats) and eight x-side
+    operand slices."""
+    nc = delta_cols_per_cta(n, cluster)
+    mp = _al4(m)
+    floats = (_CD_SCRATCH + 3 * mp + _CD_XSTATE * nc
+              + (0 if woodbury else _al4(n)) + _al4(_CD_BLKVALS * min(nb, nc))
+              + max(nc, CD_THREADS))
+    if resident:   # A's rows at a stride of 4 mod 8 floats
+        floats += ((_CD_MVECS + _CD_MOPS) * mp + m * (nc + 4 * (nc % 8 == 0))
+                   + _CD_XOPS * nc)
+    return 4 * floats
+
+
+def conic_delta_launch_plan(m, n, nb, smem_limit=SMEM_OPTIN, woodbury=True):
+    """The launch of a chunk (a `DeltaPlan`: cluster size, residency,
+    shared memory per CTA): the first of CONIC_DELTA_PLANS that fits
+    `smem_limit`, else the last one spilled, which takes every shape.
+    Where the reference runs its XLA chunk because its kernel does not
+    fit VMEM, the port's kernel spills."""
+    if m < 1 or n < 1:
+        raise ValueError(f"empty chunk: m={m} n={n}")
+    for cluster, resident in CONIC_DELTA_PLANS:
+        nbytes = conic_delta_smem_bytes(m, n, nb, cluster, resident, woodbury)
+        if nbytes <= smem_limit:
+            return DeltaPlan(cluster, resident, nbytes)
+    return DeltaPlan(CONIC_DELTA_PLANS[-1][0], False, 0, spill=True)
+
+
+def cluster_block_spans(start, length, n, cluster):
+    """Where K3's cone blocks lie among a cluster's CTAs
+    (`csrc/conic_delta.cu`): CTA r owns the columns [r nc, (r+1) nc),
+    nc = `delta_cols_per_cta(n, cluster)`.  Returns `(spans, touched)`:
+    `spans[k] = (r_lo, r_hi)`, the CTAs that hold block k's first and
+    last element (the head's CTA runs its chain; with r_lo < r_hi the
+    block straddles CTAs and its body sums and head values travel in the
+    iteration's last exchange); `touched[r] = (k_lo, k_hi)`, the blocks
+    that touch CTA r's columns."""
+    start = np.asarray(start, np.int64)
+    end = start + np.asarray(length, np.int64)
+    nc = delta_cols_per_cta(n, cluster)
+    spans = [(int(s0) // nc, (int(e0) - 1) // nc) for s0, e0 in zip(start, end)]
+    touched = []
+    for r in range(cluster):
+        c0, c1 = r * nc, min(n, (r + 1) * nc)
+        if c1 <= c0:
+            touched.append((0, 0))
+            continue
+        touched.append((int(np.searchsorted(end, c0, side="right")),
+                        int(np.searchsorted(start, c1, side="left"))))
+    return spans, touched
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_lib():
+    from .build import load
+
+    lib = load("conic_delta").lib
+    lib.abip_conic_delta.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    lib.abip_conic_delta.restype = ctypes.c_int
+    lib.abip_conic_delta_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.abip_conic_delta_smem_bytes.restype = ctypes.c_longlong
+    lib.abip_conic_delta_work_floats.argtypes = [ctypes.c_int] * 6
+    lib.abip_conic_delta_work_floats.restype = ctypes.c_longlong
+    lib.abip_conic_delta_max_active_clusters.argtypes = [
+        ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.abip_conic_delta_max_active_clusters.restype = ctypes.c_int
+    for fn in (lib.abip_row_width, lib.abip_conic_delta_threads):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
+    lib.abip_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.abip_cuda_error_string.restype = ctypes.c_char_p
+    if (lib.abip_row_width() != DELTA_ROW
+            or lib.abip_conic_delta_threads() != CD_THREADS
+            or lib.abip_conic_delta_work_floats(5, 1, 0, 1, 1, 0)
+            != _CD_MVECS * 8):
+        raise RuntimeError("csrc/conic_delta.cu and its wrapper disagree on "
+                           "the output row, the threads or the workspace")
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def conic_delta_max_active_clusters(m, n, nb, plan: DeltaPlan,
+                                    woodbury=True, device_index=0):
+    """How many of the plan's clusters the card holds at once
+    (`cudaOccupancyMaxActiveClusters`).  A lane is one cluster; more
+    lanes than this queue."""
+    lib = _kernel_lib()
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = lib.abip_conic_delta_max_active_clusters(
+            m, n, nb, plan.cluster, int(plan.resident), int(woodbury),
+            int(plan.spill), ctypes.byref(out))
+    if err:
+        raise _cuda_error(lib, "conic_delta occupancy query failed", err)
+    return out.value
+
+
 def conic_delta_cuda(anc: ConicDeltaAnchor, co: ConeOperands, t_max, *,
-                     probe, woodbury):
-    """The chunk on the card: one launch of `csrc/conic_delta.cu` over
-    the lanes.  Same contract as `_conic_delta_compute`.  Raises on an
-    operand the kernel does not take and on a refused launch; never
-    falls back."""
+                     probe, woodbury, plan=None):
+    """The chunk on the card: one launch of `csrc/conic_delta.cu`, one
+    thread-block cluster per lane, by `conic_delta_launch_plan`.  Same
+    contract as `_conic_delta_compute`.  `plan` (a `DeltaPlan`) replaces
+    the launch plan, to time other cluster sizes and residencies and to
+    check the spilled form; the solvers never pass it.  Raises on an operand the kernel does not take, on a plan
+    the card cannot hold and on a refused launch; never falls back."""
     B, m, n = anc.A.shape
     dev = anc.A.device
     if dev.type != "cuda":
@@ -529,11 +670,39 @@ def conic_delta_cuda(anc: ConicDeltaAnchor, co: ConeOperands, t_max, *,
     t_max = t_max.to(device=dev, dtype=torch.int32).contiguous()
     check_operands(list(anc._asdict().items()) + [("t_max", t_max)], want,
                    dev)
+    nb = co.start.shape[0]
+    limit = smem_optin(dev)
+    if plan is None:
+        plan = conic_delta_launch_plan(m, n, nb, limit, woodbury)
+    check_plan(plan, limit)
+    lib = _kernel_lib()
+    if lib.abip_conic_delta_smem_bytes(
+            m, n, nb, plan.cluster, int(plan.resident), int(woodbury),
+            int(plan.spill)) != plan.smem_bytes:
+        raise RuntimeError("csrc/conic_delta.cu and its wrapper disagree on "
+                           "the shared memory of a CTA")
+    if conic_delta_max_active_clusters(m, n, nb, plan, woodbury,
+                                       dev.index or 0) < 1:
+        raise RuntimeError(
+            f"the card cannot hold one cluster of {plan.cluster} CTAs with "
+            f"{plan.smem_bytes} B of shared memory each (m={m} n={n})")
     outs = [torch.empty((B, k), dtype=f32, device=dev)
             for k in (m, n, m, n, DELTA_ROW)]
-    launch("conic_delta", list(anc) + [t_max] + _cone_kernel_inputs(co, dev),
-           outs, B, m, n, co.start.shape[0], probe, 1.0, woodbury, dev,
-           DELTA_ROW)
+    ins = list(anc) + [t_max] + _cone_kernel_inputs(co, dev)
+    inp = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
+    outp = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
+    # the streaming form keeps each CTA's m-side vectors in global
+    # memory, the spilled form its whole layout
+    work = cluster_workspace(lib.abip_conic_delta_work_floats, B, plan, dev,
+                             m, n, nb, int(woodbury))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.abip_conic_delta(
+            inp, outp, None if work is None else work.data_ptr(), B, m, n,
+            nb, probe, int(woodbury), plan.cluster, int(plan.resident),
+            int(plan.spill), ctypes.c_void_p(stream))
+    if err:
+        raise _cuda_error(lib, "conic_delta kernel launch failed", err)
     conic_delta_cuda.launches += 1
     return tuple(outs)
 
@@ -645,7 +814,10 @@ def run_conic_delta_chunk(A64, solve_fn, Qd64, ry64, rx64, b64, c64, a_coef,
     to T f32 iterations stopping at err < thresh, the f64 state.
 
     `active` (`(B,)` bool) gives inactive lanes zero iterations.  On CPU
-    tensors the plain version runs; on CUDA tensors the kernel, or it
+    tensors the plain version runs; on CUDA tensors the kernel, in the
+    form `conic_delta_launch_plan` picks (where the reference's
+    `pallas_fits` gate, `abip_tpu/ops/conic_delta.py:662`, runs its XLA
+    chunk, the kernel spills).  A build failure or a refused launch
     raises."""
     B, m, n = A64.shape
     if A64.device.type not in ("cpu", "cuda"):
@@ -667,6 +839,7 @@ def run_conic_delta_chunk(A64, solve_fn, Qd64, ry64, rx64, b64, c64, a_coef,
                        (v[:, m + n] + row[:, 1])[:, None]], dim=1)
     return ConicDeltaResult(u=u_new, v=v_new,
                             t_done=row[:, 3].to(torch.int32), err=row[:, 2])
+
 
 
 def conic_anchor_from_numpy(fields, m, n, woodbury, device=None

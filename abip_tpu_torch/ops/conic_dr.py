@@ -17,9 +17,10 @@ fit: every `probe` iterations the f32 inner criterion
 `_dr_ladder_compute` and `_dr_sprint_compute` are the plain PyTorch
 versions (CPU tensors, and the references the kernels are held to);
 `csrc/conic_ladder.cu` and `csrc/conic_sprint.cu` are the CUDA kernels,
-which share the iteration (`csrc/conic_common.cuh`).  The entries take
-the plain version on CPU tensors and the kernel on CUDA tensors, or
-raise; they never fall back.
+which share the iteration (`csrc/conic_common.cuh`; a lane's vectors in
+shared memory, or spilled to a global workspace where a block's shared
+memory does not hold them, so that they take every shape).  The entries
+take the plain version on CPU tensors and the kernel on CUDA tensors.
 
 Layout: lane axis first, no padding.  Rows are `(B, m)`/`(B, n)` f32,
 `A` is `(B, m, n)`, `Minv` is G^-1 `(B, m, m)` (Woodbury form, with the
@@ -40,6 +41,7 @@ import numpy as np
 import torch
 
 from ..cones import E_FREE, E_NN, E_SOC_H, Blocks, ConeOperands
+from ..device import smem_optin
 from .admm_delta import _mv, _per_lane, _rmv
 
 f32 = torch.float32
@@ -376,22 +378,35 @@ def _dr_ladder_compute(op: LadderOperands, co: ConeOperands, t_max, *,
 # the CUDA kernels' bindings (shared with ops/conic_delta.py)
 # ---------------------------------------------------------------------------
 
+def dr_smem_bytes(m, n, nb):
+    """Dynamic shared memory of the one block per lane of K2 and K4
+    (`csrc/conic_common.cuh:dr_layout_floats`: `dr_smem_floats` and the
+    32 warps' reduction scratch of 6).  Where it exceeds a block's shared
+    memory, the kernels spill: the same layout lies in the lane's slice
+    of a global workspace (where the reference runs its XLA version
+    because its kernel does not fit VMEM, `abip_tpu/ops/conic_pallas.py:
+    496`, `:805`)."""
+    return 4 * (6 * m + 4 * n + 3 * nb + 32 * 6)
+
+
 @functools.lru_cache(maxsize=None)
 def kernel_lib(name):
-    """ctypes handle of `csrc/<name>.cu` (conic_ladder or conic_delta),
+    """ctypes handle of `csrc/<name>.cu` (conic_ladder or conic_sprint),
     built at first use."""
     from .build import load
 
     lib = load(name).lib
     entry = getattr(lib, f"abip_{name}")
     entry.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                      ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
+                      ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
+                      ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     entry.restype = ctypes.c_int
-    smem = getattr(lib, f"abip_{name}_smem_bytes")
-    smem.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-    smem.restype = ctypes.c_longlong
+    for what in ("smem_bytes", "work_floats"):
+        fn = getattr(lib, f"abip_{name}_{what}")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        fn.restype = ctypes.c_longlong
     lib.abip_cuda_error_string.argtypes = [ctypes.c_int]
     lib.abip_cuda_error_string.restype = ctypes.c_char_p
     lib.abip_row_width.argtypes = []
@@ -413,25 +428,28 @@ def check_operands(named, want, dev):
 
 def launch(name, ins, outs, B, m, n, nb, probe, psi, woodbury, dev,
            row_width):
-    """One launch of `csrc/<name>.cu` over B lanes on the current stream;
-    raises before launch when the shared memory does not fit the card,
-    and on a refused launch."""
+    """One launch of `csrc/<name>.cu` over B lanes on the current stream,
+    spilled where the lane's layout exceeds the card's shared memory per
+    block; raises on a refused launch."""
     lib = kernel_lib(name)
     if lib.abip_row_width() != row_width:
         raise RuntimeError(f"csrc/{name}.cu and its wrapper disagree on the "
                            "output row width")
     smem = getattr(lib, f"abip_{name}_smem_bytes")(m, n, nb)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
-    if smem > limit:
-        raise ValueError(
-            f"shape m={m} n={n} with {nb} cone blocks needs {smem} B of "
-            f"shared memory per block; this card allows {limit}")
+    limit = smem_optin(dev)
+    if smem != dr_smem_bytes(m, n, nb):
+        raise RuntimeError(f"csrc/{name}.cu and its wrapper disagree on the "
+                           "shared memory of a block")
+    work = None if smem <= limit else torch.empty(
+        (B * getattr(lib, f"abip_{name}_work_floats")(m, n, nb),),
+        dtype=f32, device=dev)
     inp = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
     outp = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"abip_{name}")(
-            inp, outp, B, m, n, nb, probe, ctypes.c_float(psi),
+            inp, outp, None if work is None else work.data_ptr(), B, m, n,
+            nb, probe, ctypes.c_float(psi),
             int(woodbury), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{name} kernel launch failed: "
@@ -517,8 +535,7 @@ def fused_dr_ladder(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32, D32, E32,
     or `(B,)` tensors; u32, v32 `(B, m + n + 1)`.  `active` (`(B,)`
     bool) gives inactive lanes zero iterations.  Returns
     (u, v, t_done, err, mu, tol_inner, stages), `(B, ...)` f32 and int32.
-    On CPU tensors the plain version runs; on CUDA tensors the kernel,
-    or it raises."""
+    On CPU tensors the plain version runs; on CUDA tensors the kernel."""
     B, m, n = A32.shape
     if A32.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no ladder for device {A32.device}")
@@ -536,6 +553,7 @@ def fused_dr_ladder(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32, D32, E32,
     v = torch.cat([vy, vx, out[:, 1:2]], dim=1)
     return (u, v, out[:, 3].to(torch.int32), out[:, 2], out[:, 4],
             out[:, 5], out[:, 6].to(torch.int32))
+
 
 
 # ---------------------------------------------------------------------------
@@ -674,8 +692,8 @@ def fused_dr_sprint_stop(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32,
     `(B, m + n + 1)`; k0 the ADMM count before this launch (the first
     iteration ever takes tau_t = 1).  `active` (`(B,)` bool) gives
     inactive lanes zero iterations.  Returns (u, v, t_done, err), f32
-    and int32.  CPU tensors take the plain version, CUDA tensors the
-    kernel, or it raises."""
+    and int32.  CPU tensors take the plain version; CUDA tensors the
+    kernel."""
     B, m, n = A32.shape
     if A32.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no sprint for device {A32.device}")
@@ -690,6 +708,7 @@ def fused_dr_sprint_stop(A32, Minv32, Hinv32, r_vec32, b32, c32, Qd32,
     u = torch.cat([y, x, out[:, 0:1]], dim=1)
     v = torch.cat([vy, vx, out[:, 1:2]], dim=1)
     return u, v, out[:, 3].to(torch.int32), out[:, 2]
+
 
 
 def _unpad(x, dims, dtype=np.float32):

@@ -13,7 +13,8 @@ duration:
    `csrc/conic_ladder.cu` (conic phase 1), K4 `csrc/conic_sprint.cu`
    (conic one-stage sprint), K3 `csrc/conic_delta.cu` (conic delta
    chunk), K5 `csrc/bcsr_spmv.cu` (sparse product over the stored
-   entries), K8 `csrc/barrier_step.cu` (fused barrier step);
+   entries), K8 `csrc/barrier_step.cu` (fused barrier step); K1, K3, K6
+   and K7 run one thread-block cluster per lane;
 2. host LP driver: hold K5 against its plain version, the tile product
    and scipy's f64 product (A and A' of the smoke instance, ragged
    shapes, rows of widely differing lengths; f64 and f32);
@@ -30,15 +31,17 @@ duration:
    Ninv are read through L2; T=64, thresh=0; then thresholds that stop
    lanes mid-chunk); solve a fresh B=16 smoke batch through
    `solve_lp_batch` (eps=1e-6, chunk T=1536) against scipy's HiGHS;
-   time it, and one chunk at each cluster size; profile it;
+   time it, and one chunk at each cluster size and spilled; profile it;
 4. conic: hold K2 against its plain version on phase 1 from the cold
    start (dim-1020 B=16 and a small primal-form batch with a diagonal
-   Q), and K3 on mid-solve anchors (T=64, thresh=0; then thresholds that
-   stop lanes mid-chunk); solve a fresh B=16 dim-1020 batch through
-   `solve_qcp_batch(engine="sprint2")` with the options of
-   `tools/conic_bench.py` against the instances' known optima; time
-   it, one K2 launch and one K3 chunk against their plain versions, and
-   the f64 pieces; profile one solve;
+   Q), and K3 on mid-solve anchors in the form its launch plan picks
+   (T=64, thresh=0; then thresholds that stop lanes mid-chunk); solve a
+   fresh B=16 dim-1020 batch through `solve_qcp_batch(engine="sprint2")`
+   with the options of `tools/conic_bench.py` against the instances'
+   known optima; time it, one K2 launch and one K3 chunk against their
+   plain versions (K3 at every cluster size and residency whose CTA fits
+   the card, with the clusters the card holds at once; both spilled
+   too), and the f64 pieces; profile one solve;
 5. the sprint engines: hold K6 and K7 against their plain version on
    mid-solve states (the LP shapes of phase 3; T=64 and T=32, then
    thresholds that stop lanes mid-chunk); solve fresh B=16 smoke
@@ -46,16 +49,29 @@ duration:
    sprint_T=32, sprint_mu_switch=1e-4) with the delta endgame (K6 + K1:
    solved, timed as a median of 3, profiled), the steps endgame, and the
    sprint engine under cadence "cond" (K7), each against HiGHS; time K6
-   and K7; hold K4 against its plain version (the conic cases of phase
+   and K7, at cluster sizes 4, 5, 6, 8 and 16 and spilled too; hold K4
+   against its
+   plain version (the conic cases of phase
    4, from the cold start and at k0=64, then mid-chunk stops); solve a
    fresh dim-1020 batch with `phase1="sprint"` (K4 + K3) against the
    known optima and time it as a median of 3; hold K8 against its plain
    version in f32 and f64, including the prox arguments where the
-   reference's guarded form fails; time K4 and K8.
+   reference's guarded form fails; time K4 (spilled too) and K8;
+6. the shape repair: every kernel takes every shape, spilling its
+   layout to a global workspace where no shared memory holds a CTA (a
+   block, for K2 and K4).  With the launch plans held to no shared
+   memory (`device.limit_shared_memory(0)`), hold K1, K2, K3, K4, K6
+   and K7 spilled against their plain versions (the parity checks of
+   phases 3-5) and solve fresh LP sprint2 + delta and conic
+   phase1="sprint" batches that way; then a conic batch of n=14,500
+   (10 SOC(5), 5 RSOC(4), the rest nonneg, m=50), whose lane one block
+   of K2 cannot hold in shared memory, solved on the card through the
+   kernels (K2 spilled): every lane Solved within 1e-5 of its known
+   optimum, as the reference solves it.
 
-Each main path runs with its kernels' launch counts set to 0 just before
-it and read just after.  Exits nonzero, printing no result, without a
-card or on any failure.  The last three lines are the kernel summary
+Each main path runs with its kernels' launch counts set to 0 just
+before it and read just after.  Exits nonzero, printing no result,
+without a card or on any failure.  The last three lines are the kernel summary
 (JSON, with each kernel's bound on this card), the card's name and power
 limit, and the result (JSON).
 """
@@ -212,6 +228,11 @@ K1_CASES = (("smoke B=16 m=50 n=2000", SMOKE, B),
             ("L2-streaming B=4 m=200 n=3000", dict(m=200, n_rand=2800), 4))
 
 
+# a cluster plan's form, by (resident, spill)
+FORMS = {(True, False): "resident", (False, False): "A through L2",
+         (False, True): "A through L2, spilled"}
+
+
 def k1_parity(torch, dev, label, shape, nb):
     """K1 against its plain version on mid-solve anchors of one shape:
     T=64 at thresh=0 (equal t_done, every output within the stated
@@ -228,7 +249,7 @@ def k1_parity(torch, dev, label, shape, nb):
     anc = make_anchor(torch, S, u, v, 0.0)
     _, m, n = anc.A.shape
     plan = delta_launch_plan(m, n)
-    if label.startswith("L2") == plan.resident:
+    if not plan.spill and label.startswith("L2") == plan.resident:
         raise AssertionError(f"{label}: plan {plan}")
     t_max = torch.full((nb,), 64, dtype=torch.int32, device=dev)
     ker = delta_chunk_cuda(anc, t_max, PROBE)
@@ -246,7 +267,7 @@ def k1_parity(torch, dev, label, shape, nb):
             f"{label}: kernel is {kerr:.3e} from the f64 run, more than "
             f"{ACC_RATIO}x the plain version's {perr:.3e}")
     print(f"parity K1 {label} T=64 ({plan.cluster} CTAs a lane, "
-          f"{'resident' if plan.resident else 'A through L2'}, "
+          f"{FORMS[plan.resident, plan.spill]}, "
           f"{plan.smem_bytes} B shared memory, "
           f"{delta_max_active_clusters(m, n, plan)} clusters at once): "
           f"max|kernel-plain|={err:.3e} (rtol {RTOL} + {REL_SCALE}*scale: "
@@ -364,6 +385,12 @@ def phase_timing(torch, dev, card):
               f"{t:.3f} ms ({t * 1e3 / 1536:.2f} us/iteration), resident, "
               f"{p.smem_bytes} B shared memory, "
               f"{delta_max_active_clusters(m, n, p)} clusters at once")
+    p = delta_launch_plan(m, n, 0)
+    t = cuda_ms(lambda: delta_chunk_cuda(anc, t_max, PROBE, plan=p), iters=3)
+    print(f"timing K1 chunk T=1536 B=16 m=50 n=2000 C={p.cluster} [{card}]: "
+          f"{t:.3f} ms ({t * 1e3 / 1536:.2f} us/iteration), spilled (the "
+          f"layout in global memory), "
+          f"{delta_max_active_clusters(m, n, p)} clusters at once")
     ms = cuda_ms(lambda: delta_chunk_cuda(anc, t_max, PROBE), iters=5)
     plain_ms = cuda_ms(lambda: _delta_compute(anc, t_max, PROBE), iters=3)
     # per iteration A'dz and A dwx (two A passes) and the Ninv apply; per
@@ -673,12 +700,12 @@ def ladder_parity(torch, dev, label, case):
     return err
 
 
-def delta_parity(torch, dev, label, case):
+def delta_parity(torch, dev, label, case, plan=None):
     """K3 against the plain chunk on the state phase 1 hands to the
     endgame: T=64 with thresh=0 (equal t_done, the stated tolerance, the
     accuracy ratio), then thresholds that stop the lanes mid-chunk
-    (`decisive_thresholds`; t_done within one probe).  Returns the
-    largest |kernel - plain|."""
+    (`decisive_thresholds`; t_done within one probe), in the form of the
+    launch plan, or of `plan`.  Returns the largest |kernel - plain|."""
     from abip_tpu_torch.ops.conic_delta import (ConicDeltaAnchor,
                                                 _conic_delta_compute,
                                                 conic_delta_cuda)
@@ -689,10 +716,11 @@ def delta_parity(torch, dev, label, case):
     st = conic_phase1_state(torch, P, cones)
     co = cone_operands(cones, dev)
     nb = P.A.shape[0]
+    print(f"K3 {label}: {k3_plan_line(torch, P, co, plan)}")
     anc = conic_anchor(torch, P, cones, st, 0.0)
     t_max = torch.full((nb,), 64, dtype=torch.int32, device=dev)
     run = dict(probe=PROBE, woodbury=P.dss.form == "woodbury")
-    ker = conic_delta_cuda(anc, co, t_max, **run)
+    ker = conic_delta_cuda(anc, co, t_max, plan=plan, **run)
     plain = _conic_delta_compute(anc, co, t_max, **run)
     exact = _conic_delta_compute(ConicDeltaAnchor(*[x.double() for x in anc]),
                                  co, t_max, **run)
@@ -711,7 +739,8 @@ def delta_parity(torch, dev, label, case):
         nb, dev)
     anc = conic_anchor(torch, P, cones, st, thresh)
     t_max = torch.full((nb,), 256, dtype=torch.int32, device=dev)
-    tk = conic_delta_cuda(anc, co, t_max, **run)[4][:, 3].int().tolist()
+    tk = conic_delta_cuda(anc, co, t_max, plan=plan,
+                          **run)[4][:, 3].int().tolist()
     tp = _conic_delta_compute(anc, co, t_max, **run)[4][:, 3].int().tolist()
     if tp != t_stop:
         raise AssertionError(f"K3 {label}: plain t_done {tp}, planned {t_stop}")
@@ -721,6 +750,28 @@ def delta_parity(torch, dev, label, case):
           f"plain {tp} (within one probe; each threshold splits a drop of at "
           f"least {min(drop):.3f}x in the plain criterion)")
     return err
+
+
+def k3_plan_line(torch, P, co, plan=None):
+    """K3's launch plan for a prepared batch (or `plan`), the clusters the
+    card holds at once, and the cone blocks that straddle CTAs."""
+    from abip_tpu_torch.ops.conic_delta import (cluster_block_spans,
+                                                conic_delta_launch_plan,
+                                                conic_delta_max_active_clusters)
+
+    _, m, n = P.A.shape
+    nb = co.start.shape[0]
+    wb = P.dss.form == "woodbury"
+    plan = plan or conic_delta_launch_plan(m, n, nb, woodbury=wb)
+    spans, _ = cluster_block_spans(co.start.cpu(), co.length.cpu(), n,
+                                   plan.cluster)
+    straddle = sum(lo != hi for lo, hi in spans)
+    form = ("A resident, the inverse through L2" if plan.resident else
+            "A and the inverse through L2" + (", spilled" if plan.spill
+                                              else ""))
+    return (f"C={plan.cluster} ({form}, {plan.smem_bytes} B shared memory "
+            f"per CTA, {conic_delta_max_active_clusters(m, n, nb, plan, wb)} "
+            f"clusters at once), {straddle} of {nb} cone blocks straddle CTAs")
 
 
 def decisive_thresholds(torch, crit, nb, dev, T=64, min_drop=1.02):
@@ -804,11 +855,19 @@ def conic_vs_optima(res, stars, label):
         raise AssertionError(f"{label}: objectives off: {rel.tolist()}")
 
 
+# the cluster sizes K3 is timed at, each in every residency that fits
+K3_CLUSTERS = (4, 5, 6, 7, 8, 16)
+
+
 def phase_conic_timing(torch, dev, card):
     from abip_tpu_torch import conic_ops
+    from abip_tpu_torch.ops.admm_delta import DeltaPlan
     from abip_tpu_torch.ops.conic_delta import (_conic_delta_compute,
-                                                conic_delta_cuda)
+                                                conic_delta_cuda,
+                                                conic_delta_launch_plan,
+                                                conic_delta_smem_bytes)
     from abip_tpu_torch.cones import cone_operands
+    from abip_tpu_torch.device import limit_shared_memory
     from abip_tpu_torch.ops.conic_dr import _dr_ladder_compute, ladder_cuda
     from abip_tpu_torch.utils.timing import cuda_ms, wall_s
 
@@ -844,10 +903,34 @@ def phase_conic_timing(torch, dev, card):
     print(f"timing K2 one phase-1 launch B=16 dim-1020 (32 iterations, 4 "
           f"stages) [{card}]: kernel {k2_ms:.3f} ms, plain version "
           f"{k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
+    with limit_shared_memory(0):
+        t = cuda_ms(lambda: ladder_cuda(op, co, t_max, **run), iters=3)
+    print(f"timing K2 one phase-1 launch B=16 dim-1020 [{card}]: {t:.3f} ms "
+          f"spilled (the lane's vectors in global memory)")
     st = conic_phase1_state(torch, P, cones)
     anc = conic_anchor(torch, P, cones, st, 0.0)
     t_max = torch.full((B,), 512, dtype=torch.int32, device=dev)
     run = dict(probe=PROBE, woodbury=True)
+    # every cluster size and residency whose CTA fits the card
+    nb = co.start.shape[0]
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for size in K3_CLUSTERS:
+        for resident in (False, True):
+            nbytes = conic_delta_smem_bytes(m, n, nb, size, resident)
+            if nbytes > limit:
+                continue
+            p = DeltaPlan(size, resident, nbytes)
+            t = cuda_ms(lambda: conic_delta_cuda(anc, co, t_max, plan=p,
+                                                 **run), iters=3)
+            print(f"timing K3 chunk T=512 B=16 dim-1020 [{card}]: {t:.3f} ms "
+                  f"({t * 1e3 / 512:.2f} us/iteration) at "
+                  f"{k3_plan_line(torch, P, co, p)}")
+    p = conic_delta_launch_plan(m, n, nb, 0)
+    t = cuda_ms(lambda: conic_delta_cuda(anc, co, t_max, plan=p, **run),
+                iters=3)
+    print(f"timing K3 chunk T=512 B=16 dim-1020 [{card}]: {t:.3f} ms "
+          f"({t * 1e3 / 512:.2f} us/iteration) at "
+          f"{k3_plan_line(torch, P, co, p)}")
     k3_ms = cuda_ms(lambda: conic_delta_cuda(anc, co, t_max, **run), iters=5)
     k3_plain = cuda_ms(lambda: _conic_delta_compute(anc, co, t_max, **run),
                        iters=1)
@@ -857,9 +940,9 @@ def phase_conic_timing(torch, dev, card):
                             outs[4][:, 3],
                             8 * m * n + 2 * m * m + 4 * m * n / PROBE)
     print(f"timing K3 chunk T=512 B=16 dim-1020 [{card}]: kernel "
-          f"{k3_ms:.3f} ms ({k3_ms * 1e3 / 512:.2f} us/iteration), plain "
-          f"version {k3_plain:.3f} ms (one chunk), bound {k3_bound[0]:.4f} "
-          f"ms ({k3_bound[1]})")
+          f"{k3_ms:.3f} ms ({k3_ms * 1e3 / 512:.2f} us/iteration; the plan's "
+          f"{k3_plan_line(torch, P, co)}), plain version {k3_plain:.3f} ms "
+          f"(one chunk), bound {k3_bound[0]:.4f} ms ({k3_bound[1]})")
     As, bs, cs, _ = (None if x is None else torch.as_tensor(x, device=dev)
                      for x in stacks)
     m, n = CONIC_M, P.A.shape[2]
@@ -892,8 +975,8 @@ def phase_conic_timing(torch, dev, card):
 def phase_conic_profile(torch, dev):
     cones, stacks, _ = conic_batch(8700)
     profile_solve(torch, lambda: solve_conic(torch, cones, stacks, dev),
-                  {"K2": "conic_ladder_kernel", "K3": "conic_delta_kernel"},
-                  "one conic solve")
+                  {"K2": "conic_ladder_kernel",
+                   "K3": "conic_delta_cluster_kernel"}, "one conic solve")
 
 
 # ---------------------------------------------------------------------------
@@ -1204,8 +1287,9 @@ def phase_lp_sprint_main(torch, dev):
 def phase_lp_sprint_timing(torch, dev, card):
     """sprint2 + delta: median of 3 fresh batches; K6 (one T=1536 chunk)
     and K7 (one T=32 sprint) against their plain version, with bounds."""
-    from abip_tpu_torch.ops.admm_sprint import (_sprint_compute, sprint_cuda,
-                                                sprint_stop_cuda)
+    from abip_tpu_torch.ops.admm_sprint import (
+        DeltaPlan, _sprint_compute, sprint_cuda, sprint_launch_plan,
+        sprint_max_active_clusters, sprint_smem_bytes, sprint_stop_cuda)
     from abip_tpu_torch.utils.timing import cuda_ms, wall_s
 
     walls = []
@@ -1224,6 +1308,30 @@ def phase_lp_sprint_timing(torch, dev, card):
     S, u, v = mid_solve_state(torch, stacks, dev, sprint=True)
     op = lp_sprint_operands(torch, S, u, v, 0.0)
     _, m, n = op.A.shape
+    # each cluster size, resident, on the same operands
+    for size in K1_CLUSTERS:
+        p = DeltaPlan(size, True, sprint_smem_bytes(m, n, size, True))
+        t6 = cuda_ms(lambda: sprint_stop_cuda(
+            op, torch.full((B,), 1536, dtype=torch.int32, device=dev), PROBE,
+            plan=p), iters=3)
+        t7 = cuda_ms(lambda: sprint_cuda(
+            op, torch.full((B,), 32, dtype=torch.int32, device=dev), plan=p),
+            iters=5)
+        print(f"timing K6 T=1536 / K7 T=32 B=16 m=50 n=2000 C={size} "
+              f"[{card}]: {t6:.3f} ms ({t6 * 1e3 / 1536:.2f} us/iteration) / "
+              f"{t7:.3f} ms, resident, {p.smem_bytes} B shared memory, "
+              f"{sprint_max_active_clusters(m, n, p)} clusters at once")
+    p = sprint_launch_plan(m, n, 0)
+    t6 = cuda_ms(lambda: sprint_stop_cuda(
+        op, torch.full((B,), 1536, dtype=torch.int32, device=dev), PROBE,
+        plan=p), iters=3)
+    t7 = cuda_ms(lambda: sprint_cuda(
+        op, torch.full((B,), 32, dtype=torch.int32, device=dev), plan=p),
+        iters=5)
+    print(f"timing K6 T=1536 / K7 T=32 B=16 m=50 n=2000 C={p.cluster} "
+          f"[{card}]: {t6:.3f} ms ({t6 * 1e3 / 1536:.2f} us/iteration) / "
+          f"{t7:.3f} ms, spilled (the layout in global memory)")
+    plan = sprint_launch_plan(m, n)
     out = {}
     for name, T, probe, fn, flops in (
             ("K6", 1536, PROBE, lambda tm: sprint_stop_cuda(op, tm, PROBE),
@@ -1237,8 +1345,9 @@ def phase_lp_sprint_timing(torch, dev, card):
         outs = fn(tm)
         bms, by = kernel_bound(list(op) + [tm], outs, outs[3][:, 3], flops)
         print(f"timing {name} T={T} B=16 m=50 n=2000 [{card}]: kernel "
-              f"{ms:.3f} ms ({ms * 1e3 / T:.2f} us/iteration), plain version "
-              f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
+              f"{ms:.3f} ms ({ms * 1e3 / T:.2f} us/iteration; the plan's "
+              f"C={plan.cluster}), plain version {plain:.3f} ms, bound "
+              f"{bms:.4f} ms ({by})")
         out[name] = (ms, plain, bms, by)
     return out["K6"], out["K7"]
 
@@ -1247,7 +1356,8 @@ def phase_lp_sprint_profile(torch, dev):
     _, stacks = smoke_batch(6100)
     profile_solve(torch, lambda: solve_sprint(torch, stacks, dev,
                                               endgame="delta"),
-                  {"K6": "sprint_kernel", "K1": "delta_cluster_kernel"},
+                  {"K6": "sprint_cluster_kernel",
+                   "K1": "delta_cluster_kernel"},
                   "one LP sprint2+delta solve")
 
 
@@ -1301,6 +1411,7 @@ def phase_sprint_kernel_timing(torch, dev, card):
     (32,000 elements, f32 and f64) against their plain versions, with
     bounds.  Returns the K4 and the f32 K8 tuples."""
     from abip_tpu_torch.cones import cone_operands
+    from abip_tpu_torch.device import limit_shared_memory
     from abip_tpu_torch.ops.conic_dr import _dr_sprint_compute, dr_sprint_cuda
     from abip_tpu_torch.ops.prox import _ref_impl, barrier_step_cuda
     from abip_tpu_torch.utils.timing import cuda_ms, queued_ms
@@ -1323,6 +1434,10 @@ def phase_sprint_kernel_timing(torch, dev, card):
     print(f"timing K4 chunk T=512 B=16 dim-1020 [{card}]: kernel {ms:.3f} ms "
           f"({ms * 1e3 / 512:.2f} us/iteration), plain version {plain:.3f} "
           f"ms, bound {bms:.4f} ms ({by})")
+    with limit_shared_memory(0):
+        t = cuda_ms(lambda: dr_sprint_cuda(op, co, tm, **run), iters=3)
+    print(f"timing K4 chunk T=512 B=16 dim-1020 [{card}]: {t:.3f} ms spilled "
+          f"(the lane's vectors in global memory)")
     k4 = (ms, plain, bms, by)
     k8 = None
     for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
@@ -1336,6 +1451,93 @@ def phase_sprint_kernel_timing(torch, dev, card):
         if k8 is None:
             k8 = (ms, plain, bms, by)
     return k4, k8
+
+
+# ---------------------------------------------------------------------------
+# the shape repair: every kernel takes every shape, spilled where no shared
+# memory holds a CTA
+# ---------------------------------------------------------------------------
+
+# n = 14,500 (10 SOC(5), 5 RSOC(4), 14,430 nonneg), m = 50: one block per
+# lane of K2 holds 6 m + 4 n + 3 nb floats in shared memory, more than a
+# block's, so K2 spills; the reference runs such a batch through its XLA
+# versions and solves every lane (JAX package on a CPU, seeds 9300-9301:
+# Solved, 208 and 184 ADMM iterations, within 4e-6 of the known optima).
+REPAIR_SPEC = dict(soc=(5,) * 10, rsoc=(4,) * 5, nonneg=14_430)
+REPAIR_M = 50
+REPAIR_SEED = 9300
+
+
+def phase_spilled(torch, dev):
+    """With the launch plans held to no shared memory, every kernel
+    spills: K1, K2, K3, K4, K6 and K7 against their plain versions (the
+    parity checks of phases 3-5, in the spilled form), then fresh LP
+    sprint2 + delta (K6 + K1) and conic phase1="sprint" (K4 + K3)
+    batches solved that way against HiGHS and the known optima.
+    Returns the largest |kernel - plain| of each kernel."""
+    from abip_tpu_torch.device import limit_shared_memory
+    from abip_tpu_torch.ops.admm_delta import delta_chunk_cuda
+    from abip_tpu_torch.ops.admm_sprint import sprint_stop_cuda
+    from abip_tpu_torch.ops.conic_delta import conic_delta_cuda
+    from abip_tpu_torch.ops.conic_dr import dr_sprint_cuda
+
+    with limit_shared_memory(0):
+        errs = {"K1": phase_kernel_parity(torch, dev),
+                "K2": max(ladder_parity(torch, dev, *c) for c in CONIC_CASES),
+                "K3": max(delta_parity(torch, dev, *c) for c in CONIC_CASES),
+                "K4": max(conic_sprint_parity(torch, dev, *c)
+                          for c in CONIC_CASES)}
+        errs["K6"], errs["K7"] = phase_lp_sprint_parity(torch, dev)
+        data, stacks = smoke_batch(1400)
+        sec, res, (l6, l1) = counted_solve(
+            torch, lambda: solve_sprint(torch, stacks, dev, endgame="delta"),
+            (sprint_stop_cuda, delta_chunk_cuda))
+        print(f"spilled LP sprint2+delta B=16 smoke: wall {sec:.3f} s, ADMM "
+              f"total {int(res.admm_iters.sum())}, launches K6 {l6}, K1 {l1}")
+        lp_vs_highs(data, res, "spilled LP sprint2+delta")
+        cones, stacks, stars = conic_batch(8900)
+        sec, res, (l4, l3) = counted_solve(
+            torch, lambda: solve_conic_sprint(torch, cones, stacks, dev),
+            (dr_sprint_cuda, conic_delta_cuda))
+        print(f"spilled conic phase1=sprint B=16 dim-1020: wall {sec:.3f} s, "
+              f"ADMM total {int(res.admm_iters.sum())}, launches K4 {l4}, "
+              f"K3 {l3}")
+        conic_vs_optima(res, stars, "spilled conic phase1=sprint")
+    if min(l6, l1, l4, l3) <= 0:
+        raise AssertionError(f"spilled solves missed a kernel: K6 {l6}, K1 "
+                             f"{l1}, K4 {l4}, K3 {l3}")
+    print(f"spilled forms vs plain, max|kernel-plain|: {errs}")
+    return errs
+
+
+def phase_repair(torch, dev):
+    """A B=2 conic batch at REPAIR_SPEC solved on the card through the
+    kernels: phase 1 in K2 spilled (its lane exceeds a block's shared
+    memory), the endgame in K3 by its plan; every lane Solved within
+    1e-5 of its known optimum."""
+    from abip_tpu_torch.device import smem_optin
+    from abip_tpu_torch.ops.conic_delta import (conic_delta_cuda,
+                                                conic_delta_launch_plan)
+    from abip_tpu_torch.ops.conic_dr import dr_smem_bytes, ladder_cuda
+    from abip_tpu_torch.utils.timing import wall_s
+
+    cones, stacks, stars = conic_batch(REPAIR_SEED, count=2, spec=REPAIR_SPEC,
+                                       m=REPAIR_M)
+    n, nb = cones.dim, len(cones.soc) + len(cones.rsoc)
+    need = dr_smem_bytes(REPAIR_M, n, nb)
+    if need <= smem_optin(dev):
+        raise AssertionError("the repair shape fits K2; pick a larger one")
+    ladder_cuda.launches = conic_delta_cuda.launches = 0
+    sec, res = wall_s(lambda: solve_conic(torch, cones, stacks, dev))
+    print(f"repair B=2 conic m={REPAIR_M} n={n}: wall {sec:.3f} s, ADMM "
+          f"{res.admm_iters.cpu().numpy().tolist()}, IPM "
+          f"{res.ipm_iters.cpu().numpy().tolist()}, K2 launches "
+          f"{ladder_cuda.launches} (spilled: a lane needs {need} B, a block "
+          f"has {smem_optin(dev)}), K3 launches {conic_delta_cuda.launches} "
+          f"({conic_delta_launch_plan(REPAIR_M, n, nb)})")
+    conic_vs_optima(res, stars, "repair")
+    if ladder_cuda.launches <= 0:
+        raise AssertionError("repair: phase 1 did not launch K2")
 
 
 # ---------------------------------------------------------------------------
@@ -1724,6 +1926,8 @@ def main():
     k8_err, k8_launches = phase("K8 parity", phase_barrier_step, torch, dev)
     k4, k8 = phase("K4/K8 timing", phase_sprint_kernel_timing, torch, dev,
                    card)
+    phase("spilled forms", phase_spilled, torch, dev)
+    phase("shape repair", phase_repair, torch, dev)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, err, times, library=None):
@@ -1739,16 +1943,16 @@ def main():
               "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1),
         entry("conic_ladder_kernel", "conic_ladder.cu",
               "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2),
-        entry("conic_delta_kernel", "conic_delta.cu",
+        entry("conic_delta_cluster_kernel", "conic_delta.cu",
               "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3),
         entry("conic_sprint_kernel", "conic_sprint.cu",
               "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4),
         entry("csr_spmv_kernel", "bcsr_spmv.cu",
               "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,
               (k5[0], k5[1], k5[3], k5[4]), library=k5[2]),
-        entry("sprint_kernel<true>", "admm_sprint.cu",
+        entry("sprint_cluster_kernel<stop>", "admm_sprint.cu",
               "abip_tpu/ops/admm_pallas.py:327", k6_launches, k6_err, k6),
-        entry("sprint_kernel<false>", "admm_sprint.cu",
+        entry("sprint_cluster_kernel<plain>", "admm_sprint.cu",
               "abip_tpu/ops/admm_pallas.py:113", k7_launches, k7_err, k7),
         entry("barrier_step_kernel", "barrier_step.cu",
               "abip_tpu/ops/prox_pallas.py:42", k8_launches, k8_err, k8)]}))

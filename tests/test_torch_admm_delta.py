@@ -274,8 +274,12 @@ def test_delta_launch_plan(m, n, cluster, resident):
 @pytest.mark.parametrize("m,n", [(15_000, 1), (2, OLD_LIMIT_FLOATS * 8)],
                          ids=["tall", "wide"])
 def test_delta_launch_plan_refuses_beyond_the_largest_shape(m, n):
-    with pytest.raises(ValueError, match="shared memory"):
-        delta.delta_launch_plan(m, n)
+    """Beyond the largest shape the streaming form's shared memory holds,
+    the plan takes no shared memory: it spills the CTA's layout to a
+    global workspace."""
+    assert delta.delta_smem_bytes(m, n, delta.CLUSTER, False) > delta.SMEM_OPTIN
+    assert delta.delta_launch_plan(m, n) == delta.DeltaPlan(
+        delta.CLUSTER, False, 0, spill=True)
 
 
 @pytest.mark.parametrize("spare,resident", [(0, True), (-4, False)],

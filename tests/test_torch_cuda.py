@@ -6,14 +6,20 @@ runs on a machine that has none, from the root of a checkout:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-K1 (LP delta chunk, one thread-block cluster per lane), K6 and K7 (LP
-sprints): anchors and states from
+K1 (LP delta chunk), K6 and K7 (LP sprints), each one thread-block
+cluster per lane: anchors and states from
 the port's own f64 setup of numpy-seeded smoke LPs, advanced by absolute
 f64 ADMM steps (`chip_smoke.mid_solve_state`).  K2 (conic ladder), K3
 (conic delta chunk) and K4 (conic sprint): the cases and tolerances of
 `chip_smoke.ladder_parity`, `chip_smoke.delta_parity` and
 `chip_smoke.conic_sprint_parity`, on instances of the JAX-free
-`chip_smoke.randcone`.  K8 (barrier step): `chip_smoke.phase_barrier_step`.
+`chip_smoke.randcone`; K3 also one thread-block cluster per lane.  K8
+(barrier step): `chip_smoke.phase_barrier_step`.  The shape repair: each
+kernel's spilled form (its layout in a global workspace, for shapes no
+shared memory holds) against the plain version, batches solved with
+every kernel spilled (`device.limit_shared_memory`), and a batch one
+block per lane of K2 cannot hold in shared memory solved through the
+kernels (`chip_smoke.phase_repair`).
 """
 import functools
 
@@ -23,6 +29,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
+from abip_tpu_torch.device import limit_shared_memory  # noqa: E402
 from abip_tpu_torch.ops import admm_delta as delta  # noqa: E402
 from abip_tpu_torch.ops import conic_delta, conic_dr  # noqa: E402
 
@@ -38,22 +45,27 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n_rand,B,cluster", [
     (50, 1950, 4, None), (37, 374, 3, None), (200, 2800, 2, None),
-    (50, 1950, 2, 4), (50, 1950, 2, 16)],
-    ids=["smoke", "ragged", "L2-streaming", "smoke-C4", "smoke-C16"])
+    (50, 1950, 2, 4), (50, 1950, 2, 16), (50, 1950, 2, "spill"),
+    (37, 374, 3, "spill")],
+    ids=["smoke", "ragged", "L2-streaming", "smoke-C4", "smoke-C16",
+         "smoke-spill", "ragged-spill"])
 def test_kernel_matches_plain_on_card(cuda_device, m, n_rand, B, cluster):
     """T=64, thresh=0: equal t_done, and every output within the
     tolerance `chip_smoke.compare` states (rtol 2e-5 plus 1e-5 of the
     output's largest magnitude: both versions reduce in f32, in other
     orders), for the plan's cluster (resident, or at m=200 n=3000 with A
-    and Ninv read through L2) and for resident plans of other cluster
-    sizes, as the smoke times them."""
+    and Ninv read through L2), for resident plans of other cluster
+    sizes, as the smoke times them, and spilled."""
     _, stacks = chip_smoke.smoke_batch(700, B, m=m, n_rand=n_rand)
     S, u, v = chip_smoke.mid_solve_state(torch, stacks, cuda_device)
     anc = chip_smoke.make_anchor(torch, S, u, v, 0.0)
     assert delta.delta_launch_plan(m, m + n_rand).resident == (m != 200)
     t_max = torch.full((B,), 64, dtype=torch.int32, device=cuda_device)
-    plan = cluster and delta.DeltaPlan(cluster, True, delta.delta_smem_bytes(
-        m, m + n_rand, cluster, True))
+    if cluster == "spill":
+        plan = delta.DeltaPlan(delta.CLUSTER, False, 0, spill=True)
+    else:
+        plan = cluster and delta.DeltaPlan(cluster, True, delta.delta_smem_bytes(
+            m, m + n_rand, cluster, True))
     ker = delta.delta_chunk_cuda(anc, t_max, 8, plan=plan)
     plain = delta._delta_compute(anc, t_max, 8)
     torch.cuda.synchronize()
@@ -65,7 +77,8 @@ def test_kernel_matches_plain_on_card(cuda_device, m, n_rand, B, cluster):
 def test_kernel_refuses_shape_beyond_shared_memory(cuda_device):
     """m=15,000 needs more shared memory per CTA than the card has even
     with A streamed through L2 (the exchange buffers, 4 m floats): the
-    wrapper raises instead of launching."""
+    wrapper refuses a shared-memory plan of that shape, and by its own
+    plan launches the spilled form, which runs the chunk."""
     B, m, n = 1, 15_000, 1
     z = {name: torch.zeros((B, m if name in delta._M_FIELDS else n),
                            dtype=torch.float32, device=cuda_device)
@@ -73,9 +86,14 @@ def test_kernel_refuses_shape_beyond_shared_memory(cuda_device):
     z["scal"] = torch.zeros((B, delta.N_SCAL), device=cuda_device)
     z["A"] = torch.zeros((B, m, n), device=cuda_device)
     z["Ninv"] = torch.zeros((B, m, m), device=cuda_device)
+    anc, one = delta.DeltaAnchor(**z), torch.ones((B,), dtype=torch.int32)
+    shared = delta.DeltaPlan(delta.CLUSTER, False, delta.delta_smem_bytes(
+        m, n, delta.CLUSTER, False))
     with pytest.raises(ValueError, match="shared memory"):
-        delta.delta_chunk_cuda(delta.DeltaAnchor(**z),
-                               torch.ones((B,), dtype=torch.int32), 8)
+        delta.delta_chunk_cuda(anc, one, 8, plan=shared)
+    assert delta.delta_launch_plan(m, n).spill
+    out = delta.delta_chunk_cuda(anc, one, 8)
+    assert out[6][:, 5].tolist() == [8.0]
 
 
 @pytest.mark.cuda
@@ -127,11 +145,67 @@ def test_conic_delta_kernel_matches_plain_on_card(cuda_device, label, case):
     chip_smoke.delta_parity(torch, cuda_device, label, case)
 
 
+# K3's forms: A resident at C=7 and C=8, A streamed at C=6 and at C=16,
+# spilled at C=16; and a batch small enough for every form, n=600, whose
+# blocks straddle CTAs in each
+STRADDLE = dict(seed0=95, count=2, m=60, spec=dict(soc=(150, 150),
+                                                   rsoc=(20,), nonneg=280))
+K3_FORMS = ((7, True), (8, True), (6, False), (16, False), (16, "spill"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", K3_FORMS,
+                         ids=["C7-A", "C8-A", "C6-stream", "C16-stream",
+                              "C16-spill"])
+def test_conic_delta_kernel_forms_on_straddling_blocks(cuda_device, form):
+    """K3 in each form on STRADDLE, whose SOC(150) blocks straddle two or
+    three CTAs' columns in every form: the parity and mid-chunk stops of
+    `chip_smoke.delta_parity`."""
+    from abip_tpu_torch.ops.conic_delta import (cluster_block_spans,
+                                                conic_delta_smem_bytes)
+    from abip_tpu_torch.cones import ConeSpec, cone_operands
+
+    co = cone_operands(ConeSpec(**STRADDLE["spec"]))
+    spans, _ = cluster_block_spans(co.start, co.length, 600, form[0])
+    assert max(hi - lo for lo, hi in spans) >= 1
+    if form[1] == "spill":
+        plan = delta.DeltaPlan(form[0], False, 0, spill=True)
+    else:
+        plan = delta.DeltaPlan(*form, conic_delta_smem_bytes(60, 600, 3, *form))
+    chip_smoke.delta_parity(torch, cuda_device, f"straddling C={form[0]}",
+                            STRADDLE, plan=plan)
+
+
+@pytest.mark.cuda
+def test_repair_solves_what_the_kernels_refuse(cuda_device):
+    """A conic batch whose lane one block of K2 cannot hold in shared
+    memory (`chip_smoke.REPAIR_SPEC`, n=14,500) solved on the card:
+    phase 1 runs K2 spilled; every lane ends as the CPU (plain) solve
+    ends, Solved, with objectives within 1e-5 relative."""
+    from abip_tpu_torch.device import smem_optin
+    from abip_tpu_torch.ops.conic_dr import dr_smem_bytes, ladder_cuda
+
+    cones, stacks, stars = chip_smoke.conic_batch(
+        chip_smoke.REPAIR_SEED, count=2, spec=chip_smoke.REPAIR_SPEC,
+        m=chip_smoke.REPAIR_M)
+    nb = len(cones.soc) + len(cones.rsoc)
+    assert dr_smem_bytes(chip_smoke.REPAIR_M, cones.dim, nb) > smem_optin(
+        cuda_device)
+    ladder_cuda.launches = 0
+    card = chip_smoke.solve_conic(torch, cones, stacks, cuda_device)
+    assert ladder_cuda.launches > 0
+    cpu = chip_smoke.solve_conic(torch, cones, stacks, torch.device("cpu"))
+    assert card.status.tolist() == cpu.status.tolist() == [1, 1]
+    rel = abs(card.pobj.cpu().numpy() - cpu.pobj.numpy()) / abs(stars).clip(1)
+    assert rel.max() < 1e-5
+
+
 @pytest.mark.cuda
 def test_conic_kernels_refuse_shapes_beyond_shared_memory(cuda_device):
     """15,000 two-element SOC blocks (n=30,000) need more shared memory
-    per block than the card has: both wrappers raise instead of
-    launching."""
+    per block (per CTA of K3) than the card has: K3 refuses a
+    shared-memory plan of that shape; by their own plans K2 and K3
+    spill and run."""
     from abip_tpu_torch.cones import ConeSpec, cone_operands
 
     spec = ConeSpec(soc=(2,) * 15_000)
@@ -150,14 +224,23 @@ def test_conic_kernels_refuse_shapes_beyond_shared_memory(cuda_device):
     lad = conic_dr.LadderOperands(**zeros(
         conic_dr.LadderOperands._fields, conic_dr._LADDER_M,
         dict(scal=(B, conic_dr.N_LADDER_SCAL), A=(B, m, n), Minv=(B, m, m))))
-    with pytest.raises(ValueError, match="shared memory"):
-        conic_dr.ladder_cuda(lad, co, t_max, probe=8, psi=1.0, woodbury=True)
+    assert conic_dr.dr_smem_bytes(m, n, 15_000) > delta.SMEM_OPTIN
+    out = conic_dr.ladder_cuda(lad, co, t_max, probe=8, psi=1.0,
+                               woodbury=True)
+    assert out[4][:, 3].tolist() == [8.0]
     anc = conic_delta.ConicDeltaAnchor(**zeros(
         conic_delta.ConicDeltaAnchor._fields, conic_delta._DELTA_M,
         dict(scal=(B, conic_delta.N_DELTA_SCAL), A=(B, m, n),
              Minv=(B, m, m))))
+    shared = delta.DeltaPlan(16, False, conic_delta.conic_delta_smem_bytes(
+        m, n, 15_000, 16, False))
     with pytest.raises(ValueError, match="shared memory"):
-        conic_delta.conic_delta_cuda(anc, co, t_max, probe=8, woodbury=True)
+        conic_delta.conic_delta_cuda(anc, co, t_max, probe=8, woodbury=True,
+                                     plan=shared)
+    assert conic_delta.conic_delta_launch_plan(m, n, 15_000).spill
+    out = conic_delta.conic_delta_cuda(anc, co, t_max, probe=8,
+                                       woodbury=True)
+    assert out[4][:, 3].tolist() == [8.0]
 
 
 @pytest.mark.cuda
@@ -325,12 +408,49 @@ def test_barrier_step_kernel_matches_plain_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [4, 16, "spill"])
+def test_sprint_kernels_at_other_cluster_sizes(cuda_device, cluster):
+    """K6 (T=64, thresh=0) and K7 (T=32) resident at cluster sizes the
+    plan does not pick, and spilled, against the plain version at the LP
+    sprints' tolerance (`chip_smoke.LP_SPRINT_REL_SCALE`), t_done
+    equal."""
+    from abip_tpu_torch.ops import admm_sprint as sp
+
+    _, stacks = chip_smoke.smoke_batch(500, 4)
+    S, u, v = chip_smoke.mid_solve_state(torch, stacks, cuda_device,
+                                         sprint=True)
+    op = chip_smoke.lp_sprint_operands(torch, S, u, v, 0.0)
+    _, m, n = op.A.shape
+    if cluster == "spill":
+        plan = sp.DeltaPlan(sp.SPRINT_CLUSTER, False, 0, spill=True)
+    else:
+        plan = sp.DeltaPlan(cluster, True, sp.sprint_smem_bytes(m, n, cluster,
+                                                                True))
+    tol = dict(amplified=(), rel_scale=chip_smoke.LP_SPRINT_REL_SCALE)
+    tm = torch.full((4,), 64, dtype=torch.int32, device=cuda_device)
+    ker = sp.sprint_stop_cuda(op, tm, 8, plan=plan)
+    plain = sp._sprint_compute(op, tm, 8)
+    assert torch.equal(ker[3][:, 3], plain[3][:, 3])
+    chip_smoke.compare_conic([*ker[:3], ker[3][:, :2]],
+                             [*plain[:3], plain[3][:, :2]],
+                             ("y", "x", "vx", "tau_kappa"), "K6", **tol)
+    tm = torch.full((4,), 32, dtype=torch.int32, device=cuda_device)
+    ker, plain = sp.sprint_cuda(op, tm, plan=plan), sp._sprint_compute(op, tm, 0)
+    chip_smoke.compare_conic([*ker[:3], ker[3][:, :2]],
+                             [*plain[:3], plain[3][:, :2]],
+                             ("y", "x", "vx", "tau_kappa"), "K7", **tol)
+
+
+@pytest.mark.cuda
 def test_sprint_kernels_refuse_shapes_beyond_shared_memory(cuda_device):
-    """n=60,000 needs more shared memory per block than the card has:
-    the LP sprint wrappers raise instead of launching."""
+    """m=15,000 needs more shared memory per CTA than the card has even
+    streamed through L2 (the exchange buffers alone are 4 m floats): the
+    LP sprint wrappers refuse a shared-memory plan of that shape, and by
+    their own plan launch the spilled form.  (n=60,000, the shape the
+    one-block kernel refused, now streams at C=6.)"""
     from abip_tpu_torch.ops import admm_sprint
 
-    B, m, n = 1, 1, 60_000
+    B, m, n = 1, 15_000, 1
     z = {k: torch.zeros((B, m if k in admm_sprint._M_FIELDS else n),
                         device=cuda_device)
          for k in admm_sprint.SprintOperands._fields}
@@ -339,10 +459,16 @@ def test_sprint_kernels_refuse_shapes_beyond_shared_memory(cuda_device):
              Ninv=torch.zeros((B, m, m), device=cuda_device))
     op = admm_sprint.SprintOperands(**z)
     one = torch.ones((B,), dtype=torch.int32)
+    shared = admm_sprint.DeltaPlan(
+        admm_sprint.SPRINT_CLUSTER, False, admm_sprint.sprint_smem_bytes(
+            m, n, admm_sprint.SPRINT_CLUSTER, False))
     with pytest.raises(ValueError, match="shared memory"):
-        admm_sprint.sprint_stop_cuda(op, one, 8)
+        admm_sprint.sprint_stop_cuda(op, one, 8, plan=shared)
     with pytest.raises(ValueError, match="shared memory"):
-        admm_sprint.sprint_cuda(op, one)
+        admm_sprint.sprint_cuda(op, one, plan=shared)
+    assert admm_sprint.sprint_launch_plan(m, n).spill
+    assert admm_sprint.sprint_stop_cuda(op, one, 8)[3][:, 3].tolist() == [8.0]
+    assert admm_sprint.sprint_cuda(op, one)[3][:, 3].tolist() == [1.0]
 
 
 @pytest.mark.cuda
@@ -373,3 +499,35 @@ def test_sprint_solves_on_card_go_through_their_kernels(cuda_device):
     assert conic_delta.conic_delta_cuda.launches > 0
     assert res.status.tolist() == [1, 1, 1, 1]
     assert abs(res.pobj.cpu().numpy() - stars).max() < 2e-5
+
+
+@pytest.mark.cuda
+def test_solves_with_every_kernel_spilled(cuda_device):
+    """With the launch plans held to no shared memory
+    (`limit_shared_memory(0)`), every kernel spills: LP sprint2 + delta
+    (K6, K1), the sprint engine under cadence "cond" (K7), the conic
+    ladder + delta (K2, K3) and conic phase1="sprint" (K4, K3) still
+    solve every lane, within 1e-5 of HiGHS or 2e-5 of the known
+    optimum."""
+    from abip_tpu_torch.ops.admm_sprint import sprint_cuda, sprint_stop_cuda
+    from abip_tpu_torch.ops.conic_dr import dr_sprint_cuda, ladder_cuda
+
+    data, stacks = chip_smoke.smoke_batch(810, 3, m=20, n_rand=180)
+    cones, cstacks, stars = chip_smoke.conic_batch(
+        308, count=4, spec=chip_smoke.SMALL_SPEC, m=7)
+    kernels = (sprint_stop_cuda, sprint_cuda, delta.delta_chunk_cuda,
+               ladder_cuda, dr_sprint_cuda, conic_delta.conic_delta_cuda)
+    for k in kernels:
+        k.launches = 0
+    with limit_shared_memory(0):
+        assert delta.delta_launch_plan(20, 200, 0).spill
+        for kw in (dict(endgame="delta"), dict(engine="sprint",
+                                               cadence="cond")):
+            res = chip_smoke.solve_sprint(torch, stacks, cuda_device,
+                                          **dict(kw, qres_period=256))
+            chip_smoke.lp_vs_highs(data, res, f"spilled {kw}")
+        for solve in (chip_smoke.solve_conic, chip_smoke.solve_conic_sprint):
+            res = solve(torch, cones, cstacks, cuda_device)
+            assert res.status.tolist() == [1, 1, 1, 1]
+            assert abs(res.pobj.cpu().numpy() - stars).max() < 2e-5
+    assert all(k.launches > 0 for k in kernels), [k.launches for k in kernels]
