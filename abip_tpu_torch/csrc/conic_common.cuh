@@ -1,18 +1,7 @@
-// What the conic kernels share (csrc/conic_ladder.cu, csrc/conic_sprint.cu,
-// and for its cone formulas csrc/conic_delta.cu): block-wide reductions that
-// give every thread the same bits, the A and explicit-inverse products with
-// one vector, the cone-block walk, the f32 cone prox formulas of
-// `abip_tpu_torch/ops/conic_dr.py`, and one lane's f32 DR iteration with its
-// inner criterion (`DrLane`).
-//
-// The ladder and the sprint run one block of kThreads threads per lane.  A
-// lane's A (m x n) and its explicit inverse stay in device memory and are
-// read through L2; the vectors live in shared memory.  Products with one
-// vector have no tensor-core work:
-//   * M v, one warp per row (coalesced along the row; v from shared memory);
-//   * M' v, one thread per column (coalesced across the warp).
-// No library call computes any of them.  (csrc/conic_delta.cu runs a
-// cluster per lane with csrc/cluster_common.cuh instead.)
+// What the conic kernels share (csrc/conic_ladder.cu, csrc/conic_sprint.cu
+// and csrc/conic_delta.cu, through csrc/conic_cluster.cuh): the per-lane
+// cone structure, warp reductions, the cone-block walk and the f32 cone
+// prox formulas of `abip_tpu_torch/ops/conic_dr.py`.
 //
 // Numerics: plain IEEE f32 `sqrtf` and `/`, and `isnan` (the RSOC delta uses
 // NaN as a branch-mismatch sentinel): build without -use_fast_math and without
@@ -24,9 +13,6 @@
 #include <math.h>
 
 namespace conic {
-
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 
 // element classes, as `ops/conic_dr.py` E_*
 enum { E_NN, E_FREE, E_ZERO, E_SOC_H, E_SOC_B, E_RSOC_H1, E_RSOC_H2, E_RSOC_B };
@@ -64,65 +50,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// Sums each v[k] over the block.  Every thread folds the per-warp partials in
-// the same order, so all threads hold the same bits and take the same branch
-// decisions; a thread that decided otherwise would hang the next barrier.
-// `red` holds kWarps * K floats.
-template <int K>
-__device__ __forceinline__ void block_sum(float (&v)[K], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_sum(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * K + k];
-    v[k] = s;
-  }
-  __syncthreads();
-}
-
-// Block-wide max of each v[k] (NaN-propagating), same discipline.
-template <int K>
-__device__ __forceinline__ void block_max(float (&v)[K], float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) v[k] = warp_max(v[k]);
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) red[warp * K + k] = v[k];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    float s = red[k];
-    for (int w = 1; w < kWarps; ++w) s = nan_max(s, red[w * K + k]);
-    v[k] = s;
-  }
-  __syncthreads();
-}
-
-// sum_j Mi[j] * w[j] over one row, by one warp; every lane gets the sum
-__device__ __forceinline__ float row_dot(const float* __restrict__ Mi, const float* w,
-                                         int cols, int lane) {
-  float acc = 0.f;
-  for (int j = lane; j < cols; j += 32) acc += __ldg(Mi + j) * w[j];
-  return warp_sum(acc);
-}
-
-// sum_i M[i, j] * y[i] down one column of a (rows x cols) matrix, by one thread
-__device__ __forceinline__ float col_dot(const float* __restrict__ M, const float* y,
-                                         int rows, int cols, int j) {
-  float acc = 0.f;
-  for (int i = 0; i < rows; ++i) acc += __ldg(M + (size_t)i * cols + j) * y[i];
-  return acc;
 }
 
 // Sum over a block's body elements [start + off, start + len) of f(element),
@@ -245,258 +172,5 @@ __device__ __forceinline__ float cone_prox_elem(int code, int blk, float t, floa
     default: return 0.f;  // zero cone
   }
 }
-
-// ---------------------------------------------------------------------------
-// One lane's conic Douglas-Rachford iteration and its f32 inner criterion,
-// shared by the ladder (csrc/conic_ladder.cu) and the sprint
-// (csrc/conic_sprint.cu): `_make_dr_fns` of `ops/conic_dr.py`.
-// ---------------------------------------------------------------------------
-
-// The f32 operand rows of one lane (LadderOperands / SprintConicOperands
-// without their scalars).
-struct DrOperands {
-  const float *A, *Minv, *hinv, *ry, *rx, *bv, *cv, *qd;
-};
-
-// Floats of dynamic shared memory a DrLane of shape (m, n) with nb cone
-// blocks carves, before the reduction scratch.
-__host__ __device__ constexpr long long dr_smem_floats(int m, int n, int nb) {
-  return 6LL * m + 4LL * n + 3LL * nb;
-}
-
-// Widest block reduction of `err_inner` (and of the ladder's error ratio).
-constexpr int kDrRed = 6;
-
-// Floats of a lane's layout with its reduction scratch: its dynamic shared
-// memory, or, in the spilled form (where a block's shared memory does not
-// hold it), its slice of a global workspace, 16-byte padded.
-__host__ __device__ constexpr long long dr_layout_floats(int m, int n, int nb) {
-  return dr_smem_floats(m, n, nb) + (long long)kWarps * kDrRed;
-}
-__host__ __device__ constexpr long long dr_work_floats(int m, int n, int nb) {
-  return (dr_layout_floats(m, n, nb) + 3) / 4 * 4;
-}
-
-// Where lane b's layout lies: in shared memory, or spilled in its slice of
-// the global workspace.  The iteration reads it alike; kSpill is a template
-// argument so that the shared form's addresses keep their state space.
-template <bool kSpill>
-__device__ __forceinline__ float* dr_layout(float* smem, float* work, int m, int n, int nb) {
-  return kSpill ? work + (size_t)blockIdx.x * dr_work_floats(m, n, nb) : smem;
-}
-
-// The launch of a kernel of one block per lane over B lanes: `smem` bytes
-// of dynamic shared memory, or none when spilled (work not null; `kernel`
-// is then the spilled kernel).
-template <typename Kernel, typename Args>
-int dr_launch(Kernel kernel, const Args& a, int B, const void* work, void* stream) {
-  const int smem =
-      work ? 0 : (int)(dr_layout_floats(a.m, a.n, a.cones.nb) * (long long)sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
-}
-
-struct DrLane {
-  // shared memory: the iterate, the projection's scratch, the block scalars
-  float *s_y, *s_vy, *s_wy, *s_at, *s_u, *s_zy;  // m each
-  float *s_x, *s_vx, *s_t, *s_zx;                // n each
-  float *s_bh1, *s_bh2, *s_bsc;                  // nb each
-  float* red;                                    // kWarps * kDrRed
-  DrOperands op;
-  Cones cn;
-  int m, n;
-  bool woodbury;
-  float rho_y, rho_x, rho_tau, a_coef, alpha, k0, inv_ry, oma;
-  float tau, kappa;
-
-  // Carve the shared memory at `smem` and load lane b's iterate (y, x, vy,
-  // vx rows of the inputs; tau, kappa) into it.  Ends with a barrier.
-  __device__ void init(float* smem, const float* y, const float* x, const float* vy,
-                       const float* vx, float tau0, float kappa0) {
-    s_y = smem;
-    s_vy = s_y + m;
-    s_wy = s_vy + m;  // wy, then y / tau (error ratio)
-    s_at = s_wy + m;  // A t
-    s_u = s_at + m;   // G^-1 A t
-    s_zy = s_u + m;
-    s_x = s_zy + m;
-    s_vx = s_x + n;
-    s_t = s_vx + n;   // rhs or t, then the prox argument tx, then x / tau
-    s_zx = s_t + n;   // zx, then rel_x
-    s_bh1 = s_zx + n;
-    s_bh2 = s_bh1 + cn.nb;
-    s_bsc = s_bh2 + cn.nb;
-    red = s_bsc + cn.nb;
-    inv_ry = 1.0f / rho_y;
-    oma = 1.0f - alpha;
-    const int tid = threadIdx.x;
-    for (int i = tid; i < m; i += kThreads) {
-      s_y[i] = y[i];
-      s_vy[i] = vy[i];
-    }
-    for (int j = tid; j < n; j += kThreads) {
-      s_x[j] = x[j];
-      s_vx[j] = vx[j];
-    }
-    tau = tau0;
-    kappa = kappa0;
-    __syncthreads();
-  }
-
-  // One conic DR iteration at barrier `lam`; `i` is the launch-local index.
-  __device__ void step(float lam, int i) {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const float *A = op.A, *Minv = op.Minv, *hinv = op.hinv, *ry = op.ry, *rx = op.rx,
-                *qd = op.qd;
-    const float lam_x = lam / rho_x, lam_tau = lam / rho_tau;
-    // p: <ry,wy>, <rx,wx>, <ry,zy>, <rx,zx>, <zx,Qd zx>
-    float p[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = tid; k < m; k += kThreads) {
-      const float w = rho_y * (s_y[k] + s_vy[k]);
-      s_wy[k] = w;
-      p[0] += ry[k] * w;
-    }
-    __syncthreads();
-    for (int j = tid; j < n; j += kThreads) {  // rhs = wx + A'(wy / rho_y)
-      const float wx = rho_x * (s_x[j] + s_vx[j]);
-      p[1] += rx[j] * wx;
-      const float r = wx + inv_ry * col_dot(A, s_wy, m, n, j);
-      s_t[j] = woodbury ? hinv[j] * r : r;
-    }
-    __syncthreads();
-    if (woodbury) {
-      for (int k = warp; k < m; k += kWarps) {  // A t
-        const float acc = row_dot(A + (size_t)k * n, s_t, n, lane);
-        if (lane == 0) s_at[k] = acc;
-      }
-      __syncthreads();
-      for (int k = warp; k < m; k += kWarps) {  // u = G^-1 (A t)
-        const float acc = row_dot(Minv + (size_t)k * m, s_at, m, lane);
-        if (lane == 0) s_u[k] = acc;
-      }
-      __syncthreads();
-    }
-    for (int j = tid; j < n; j += kThreads) {
-      // Woodbury: zx = t - H^-1 (A'u); primal: zx = rhs S^-1
-      const float z = woodbury ? s_t[j] - hinv[j] * col_dot(A, s_u, m, n, j)
-                               : col_dot(Minv, s_t, n, n, j);
-      s_zx[j] = z;
-      p[3] += rx[j] * z;
-      p[4] += z * qd[j] * z;
-    }
-    __syncthreads();
-    for (int k = warp; k < m; k += kWarps) {  // zy = (wy - A zx) / rho_y
-      const float acc = row_dot(A + (size_t)k * n, s_zx, n, lane);
-      if (lane == 0) {
-        const float z = inv_ry * (s_wy[k] - acc);
-        s_zy[k] = z;
-        p[2] += ry[k] * z;
-      }
-    }
-    block_sum(p, red);
-    const float eta = rho_tau * (tau + kappa);
-    const float b_coef = ((p[0] + p[1]) - 2.0f * (rho_y * p[2] + rho_x * p[3])) - eta;
-    const float c_coef = -p[4];
-    const float disc = max0(b_coef * b_coef - 4.0f * a_coef * c_coef);
-    float tau_t = (-b_coef + sqrtf(disc)) / (2.0f * a_coef);
-    if (!(k0 + (float)i > 0.f)) tau_t = 1.0f;  // the first-ever iteration
-    for (int k = tid; k < m; k += kThreads) {  // free-cone head + dual
-      const float rel = alpha * (s_zy[k] - tau_t * ry[k]) + oma * s_y[k];
-      const float yn = rel - s_vy[k];
-      s_vy[k] = (s_vy[k] + yn) - rel;
-      s_y[k] = yn;
-    }
-    for (int j = tid; j < n; j += kThreads) {
-      const float rel = alpha * (s_zx[j] - tau_t * rx[j]) + oma * s_x[j];
-      s_t[j] = rel - s_vx[j];
-      s_zx[j] = rel;
-    }
-    const float rel_tau = alpha * tau_t + oma * tau;
-    __syncthreads();
-    for (int k = warp; k < cn.nb; k += kWarps) {  // the cone blocks
-      const int st = cn.start[k], len = cn.length[k], is_soc = cn.soc[k];
-      const float* t = s_t;
-      const float bsq = body_sum(st, len, is_soc ? 1 : 2, lane, [t](int e) {
-        const float v = t[e];
-        return v * v;
-      });
-      if (lane == 0) {
-        if (is_soc) {
-          soc_rows(s_t[st], bsq, lam_x, &s_bh1[k], &s_bsc[k]);
-          s_bh2[k] = 0.f;
-        } else {
-          rsoc_rows(s_t[st], s_t[st + 1], bsq, lam_x, &s_bh1[k], &s_bh2[k], &s_bsc[k]);
-        }
-      }
-    }
-    __syncthreads();
-    for (int j = tid; j < n; j += kThreads) {
-      const float xn = cone_prox_elem(cn.code[j], cn.blk[j], s_t[j], lam_x, s_bh1, s_bh2, s_bsc);
-      s_vx[j] = (s_vx[j] + xn) - s_zx[j];
-      s_x[j] = xn;
-    }
-    const float tau_n = prox_nn(rel_tau - kappa, lam_tau);
-    kappa = (kappa + tau_n) - rel_tau;
-    tau = tau_n;
-    __syncthreads();
-  }
-
-  // `qcp_inner_conv_check` in f32
-  __device__ float err_inner() {
-    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const float *A = op.A, *bv = op.bv, *cv = op.cv, *qd = op.qd;
-    // q: <y,Mu_y> + <x,Mu_x>, <y,b>, <x,c>, |Qu - von|^2 (y and x blocks),
-    //    |Qu|^2, |von|^2
-    float q[kDrRed] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int k = warp; k < m; k += kWarps) {  // Mu_y = A x
-      const float mu_y = row_dot(A + (size_t)k * n, s_x, n, lane);
-      if (lane == 0) {
-        const float y = s_y[k];
-        const float qu = mu_y - bv[k] * tau;
-        const float von = rho_y * s_vy[k];
-        q[0] += y * mu_y;
-        q[1] += y * bv[k];
-        q[3] += (qu - von) * (qu - von);
-        q[4] += qu * qu;
-        q[5] += von * von;
-      }
-    }
-    for (int j = tid; j < n; j += kThreads) {  // Mu_x = Qd x - A'y
-      const float x = s_x[j];
-      const float mu_x = qd[j] * x - col_dot(A, s_y, m, n, j);
-      const float qu = mu_x + cv[j] * tau;
-      const float von = rho_x * s_vx[j];
-      q[0] += x * mu_x;
-      q[2] += x * cv[j];
-      q[3] += (qu - von) * (qu - von);
-      q[4] += qu * qu;
-      q[5] += von * von;
-    }
-    block_sum(q, red);
-    const float tau_safe = (fabsf(tau) < kEpsTau) ? kEpsTau : tau;
-    const float qu_tau = (-q[0] / tau_safe + q[1]) - q[2];
-    const float von_tau = rho_tau * kappa;
-    const float d2 = q[3] + (qu_tau - von_tau) * (qu_tau - von_tau);
-    const float qn = sqrtf(q[4] + qu_tau * qu_tau);
-    const float vn = sqrtf(q[5] + von_tau * von_tau);
-    return sqrtf(d2) / ((1.0f + qn) + vn);
-  }
-
-  // Write lane b's iterate rows (y, x, vy, vx outputs of one lane).
-  __device__ void store(float* y, float* x, float* vy, float* vx) const {
-    const int tid = threadIdx.x;
-    for (int k = tid; k < m; k += kThreads) {
-      y[k] = s_y[k];
-      vy[k] = s_vy[k];
-    }
-    for (int j = tid; j < n; j += kThreads) {
-      x[j] = s_x[j];
-      vx[j] = s_vx[j];
-    }
-  }
-};
 
 }  // namespace conic

@@ -62,8 +62,7 @@
 // remote loads, and the dependent chain of the tau quadratic and the cone
 // prox, per iteration.
 
-#include "cluster_common.cuh"
-#include "conic_common.cuh"
+#include "conic_cluster.cuh"
 
 namespace {
 
@@ -73,6 +72,14 @@ using cluster_ops::rank_read;
 using cluster_ops::rank_sum4;
 using cluster_ops::rows_dot;
 using cluster_ops::warp_sum;
+using conic_cluster::col_total;
+using conic_cluster::first_block_ending_after;
+using conic_cluster::first_block_from;
+using conic_cluster::kThreads;
+using conic_cluster::kWarps;
+using conic_cluster::res_lda;
+using conic_cluster::split_col_dots;
+using conic_cluster::thread_rows_dot;
 using conic::body_sum;
 using conic::Cones;
 using conic::kEpsTau;
@@ -106,10 +113,6 @@ enum {
 enum { O_DY, O_DX, O_DVY, O_DVX, O_ROW, O_COUNT };
 constexpr int kRowWidth = 4;  // [dtau, dkappa, err, t_done]
 
-// 384 threads a CTA, so that a thread may hold 168 registers (512 would
-// cap it at 128, and the iteration's state spills there)
-constexpr int kThreads = 384;
-constexpr int kWarps = kThreads / 32;
 constexpr int kRed = 12;     // reduction scratch per warp
 constexpr int kSlot = 24;    // one exchange slot: sums, then two block entries
 constexpr int kSlotL = 8;    // the block that holds this CTA's first column
@@ -123,7 +126,6 @@ constexpr int kMOps = 3;     // ry, e_y, e_vy: the m-side operands an iteration 
 // floats a block), computed once per launch
 enum { V_A0, V_S20, V_BSQ0, V_SC0, V_P2, V_P0, V_P1, V_DH1, V_DR2, V_DSC, V_COUNT };
 constexpr int kAnc = 20;
-constexpr int kMaxSplit = 8;  // threads a column dot is split over
 // an exchanged block entry: P0, P1, then (zx, dx, dvx) of each head
 enum { X_P0, X_P1, X_H1, X_H2 = X_H1 + 3, X_COUNT = X_H2 + 3 };
 
@@ -138,11 +140,6 @@ struct Args {
 };
 
 using cluster_ops::al4;
-
-// Row stride of a resident A slice of nc columns: 4 mod 8 floats, so that
-// the eight threads of a quarter warp that read one float4 each of eight
-// consecutive rows hit eight distinct groups of four banks.
-__host__ __device__ inline int res_lda(int nc) { return nc % 8 == 4 ? nc : nc + 4; }
 
 // Shared memory of one CTA, in floats: the reduction scratch, the exchange
 // slots and sums, the exchange buffers of the partial m-vectors, u, the
@@ -167,26 +164,6 @@ __host__ __device__ inline long long smem_floats(int m, int n, int nb, int nc, b
 // vectors, and in the spilled form the shared-memory layout after them.
 inline long long work_floats(int m, int n, int nb, int nc, bool woodbury, bool spill) {
   return kMVecs * al4(m) + (spill ? al4(smem_floats(m, n, nb, nc, false, woodbury)) : 0);
-}
-
-// the first block k of [0, nb) whose end (start + length) exceeds `col`
-__device__ __forceinline__ int first_block_ending_after(const Cones& cn, int col) {
-  int lo = 0, hi = cn.nb;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (cn.start[mid] + cn.length[mid] > col) hi = mid; else lo = mid + 1;
-  }
-  return lo;
-}
-
-// the first block k of [0, nb) that starts at or after `col`
-__device__ __forceinline__ int first_block_from(const Cones& cn, int col) {
-  int lo = 0, hi = cn.nb;
-  while (lo < hi) {
-    const int mid = (lo + hi) / 2;
-    if (cn.start[mid] >= col) hi = mid; else lo = mid + 1;
-  }
-  return lo;
 }
 
 // ---------------------------------------------------------------------------
@@ -417,69 +394,6 @@ __device__ __noinline__ void rsoc_delta(const RsocAnchor& A0, float ze0, float z
   *o_dsc = isnan(dsc) ? chc.sc - ch0.sc : dsc;
 }
 
-// sum_i M[i, j] y[i] over the rows [i0, i1), four partial sums in flight;
-// i0 a multiple of 4 and y 16-byte aligned, so that four of y's values
-// come in one (broadcast) load
-__device__ __forceinline__ float col_dot_range(const float* M, int ld, const float* y, int i0,
-                                               int i1, int j) {
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  int i = i0;
-  for (; i + 4 <= i1; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(y + i);
-    acc[0] += M[(size_t)i * ld + j] * v.x;
-    acc[1] += M[(size_t)(i + 1) * ld + j] * v.y;
-    acc[2] += M[(size_t)(i + 2) * ld + j] * v.z;
-    acc[3] += M[(size_t)(i + 3) * ld + j] * v.w;
-  }
-#pragma unroll
-  for (int k = 0; k < 3; ++k)
-    if (i + k < i1) acc[k] += M[(size_t)(i + k) * ld + j] * y[i + k];
-  return (acc[0] + acc[1]) + (acc[2] + acc[3]);
-}
-
-// The column dots sum_i M[i, j] y[i] (i < rows) of this CTA's ncol columns,
-// each split over S threads that sum contiguous row ranges into `part`;
-// returns S.  After the call's barrier, `col_total` adds a column's S
-// partials in range order.
-__device__ __forceinline__ int split_col_dots(const float* M, int ld, const float* y, int rows,
-                                              int ncol, float* part) {
-  const int S = ncol > 0 ? max(1, min(kMaxSplit, kThreads / ncol)) : 1;
-  const int per = ((rows + S - 1) / S + 3) / 4 * 4;  // a multiple of 4
-  for (int t = threadIdx.x; t < S * ncol; t += kThreads) {
-    const int q = t / ncol, j = t - q * ncol;
-    part[t] = col_dot_range(M, ld, y, min(rows, q * per), min(rows, (q + 1) * per), j);
-  }
-  __syncthreads();
-  return S;
-}
-
-__device__ __forceinline__ float col_total(const float* part, int S, int ncol, int j) {
-  float s = part[j];
-  for (int q = 1; q < S; ++q) s += part[q * ncol + j];
-  return s;
-}
-
-// out[i] = sum_j M[i, j] w[j] for the rows i < rows, j < len: one thread a
-// row, four accumulators of float4 products (M and w 16-byte aligned, ld
-// and len multiples of 4; see res_lda for ld).  A resident slice's row dots.
-__device__ __forceinline__ void thread_rows_dot(const float* M, int ld, const float* w, int len,
-                                                int rows, float* out) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-  for (int i = threadIdx.x; i < rows; i += kThreads) {
-    const float4* row = reinterpret_cast<const float4*>(M + (size_t)i * ld);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 4
-    for (int k = 0; k < len / 4; ++k) {
-      const float4 a = row[k], v = w4[k];
-      acc.x += a.x * v.x;
-      acc.y += a.y * v.y;
-      acc.z += a.z * v.z;
-      acc.w += a.w * v.w;
-    }
-    out[i] = (acc.x + acc.y) + (acc.z + acc.w);
-  }
-}
-
 // orthant barrier-prox delta, cancellation-free
 __device__ __forceinline__ float prox_nn_delta(float dt, float t0, float lam) {
   const float s0 = sqrtf(t0 * t0 + 4.0f * lam);
@@ -587,7 +501,7 @@ __global__ void __launch_bounds__(kThreads, 1) conic_delta_cluster_kernel(Args a
   // one warp a row, coalesced through L2
   auto a_rows = [&](const float* Am, int ld, const float* w, int len, int rows, float* out) {
     if (kRes)
-      thread_rows_dot(Am, ld, w, len, rows, out);
+      thread_rows_dot<false>(Am, ld, w, nullptr, len, rows, out, nullptr);
     else
       rows_dot<false, false, kThreads>(Am, ld, w, nullptr, len, rows, out, nullptr);
   };

@@ -1,5 +1,5 @@
-// Conic DR barrier ladder for Hopper (sm_90a): conic phase 1, one thread
-// block per lane.
+// Conic DR barrier ladder for Hopper (sm_90a): conic phase 1, one
+// thread-block cluster per lane.
 //
 // Replaces the TPU kernel `_ladder_kernel_batched` of
 // `abip_tpu/ops/conic_pallas.py` (Pallas, grid over lanes).  It computes what
@@ -13,28 +13,23 @@
 // criterion is met, (mu, tol) advance one stage.  The lane stops once
 // mu < mu_stop or at t_max.
 //
-// Layout.  Block b owns lane b; the vectors of the iteration live in shared
-// memory (~13 rows of m or n floats, 25 KB at m=340, n=1020).  Where a
-// block's shared memory does not hold them, the spilled form keeps them in
-// the lane's slice of a global workspace (`conic::dr_layout`), read alike.
-// A lane's A (1.39 MB at that shape) and its explicit inverse G^-1 (m x m, Woodbury
-// form) or S^-1 (n x n, primal form) stay in device memory and are read
-// through L2.  Per iteration in the Woodbury form: A'wy, A t, G^-1 (A t),
-// A'u and A zx, four A passes and one G^-1 pass; per trip four more A passes
-// (the criterion and the error ratio).  The cone prox walks the SOC/RSOC
-// blocks with one warp per block (head values from shared memory, the body
-// sum of squares by warp reduction) into per-block scalars in shared memory,
-// then applies them elementwise: no indicator-matrix products.  The
-// iteration and the inner criterion are `conic::DrLane` (conic_common.cuh),
-// which the sprint kernel (conic_sprint.cu) shares.
+// Layout and exchanges are `conic_cluster::ClusterDrLane`'s
+// (csrc/conic_cluster.cuh), shared with the sprint (csrc/conic_sprint.cu):
+// lane b is cluster b of C CTAs (launched with cudaLaunchKernelEx; C and the
+// residency from `ops/conic_dr.py:dr_launch_plan`), each owning a column
+// slice of A, resident in its shared memory where it fits; three cluster
+// exchanges per Woodbury iteration; a probe's criterion and error ratio
+// share one exchange (A x and A (x / tau) with the x side's sums and maxes).
+// Every CTA takes the barrier decision on the same bits.
 //
-// What bounds it on this card: the A passes through L2 into ONE SM per lane,
-// and occupancy (B=16 lanes busy 16 of the H100's 132 SMs).  Splitting a
-// lane's A across a thread-block cluster is later work.
+// What bounds it on this card: latency, not HBM: per iteration four passes
+// over A's slice, one over the CTA's rows of G^-1, three cluster barriers
+// with their rounds of remote loads, and the dependent chain of the tau
+// quadratic and the cone prox.
 
-#include "conic_common.cuh"
+#include "conic_cluster.cuh"
 
-using namespace conic;
+using namespace conic_cluster;
 
 namespace {
 
@@ -54,10 +49,9 @@ constexpr int kRowWidth = 7;  // [tau, kappa, err, t_done, mu, tol, stages]
 struct Args {
   const float* in[I_TMAX];
   const int* t_max;
-  Cones cones;
   float* out[O_COUNT];
-  float* work;  // spilled form: dr_work_floats floats per lane, else null
-  int m, n, probe, woodbury;
+  DrShape sh;
+  int probe;
   float psi;
 };
 
@@ -86,100 +80,42 @@ __device__ __forceinline__ void adjust_barrier(float mu, float err_ratio, float 
   *tol = gamma * gm * (psi == 1.0f ? mn : powf(mn, psi));
 }
 
-// One lane, its vectors in shared memory or (kSpill) in its slice of the
-// global workspace.
-template <bool kSpill>
-__device__ __forceinline__ void ladder_lane(Args a) {
-  extern __shared__ float smem[];
-  const int m = a.m, n = a.n, probe = a.probe;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const size_t b = blockIdx.x;
-  const int mk = a.woodbury ? m : n;
+template <int kForm>
+__global__ void __launch_bounds__(kThreads, 1) conic_ladder_cluster_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int m = a.sh.m, n = a.sh.n, probe = a.probe;
+  const int C = (int)cooperative_groups::this_cluster().num_blocks();
+  const size_t b = blockIdx.x / C;
+  const int mk = a.sh.woodbury ? m : n;
   const float* sc = a.in[I_SCAL] + b * L_COUNT;
+  const DrRows rows = {a.in[I_A] + b * m * n, a.in[I_MINV] + b * mk * mk, a.in[I_HINV] + b * n,
+                       a.in[I_RY] + b * m,    a.in[I_RX] + b * n,         a.in[I_B] + b * m,
+                       a.in[I_C] + b * n,     a.in[I_QD] + b * n,         a.in[I_D] + b * m,
+                       a.in[I_E] + b * n};
 
-  DrLane L;
-  L.op = {a.in[I_A] + b * m * n, a.in[I_MINV] + b * mk * mk, a.in[I_HINV] + b * n,
-          a.in[I_RY] + b * m,    a.in[I_RX] + b * n,         a.in[I_B] + b * m,
-          a.in[I_C] + b * n,     a.in[I_QD] + b * n};
-  L.cn = a.cones;
-  L.m = m;
-  L.n = n;
-  L.woodbury = a.woodbury != 0;
+  ClusterDrLane<kForm> L;
   L.rho_y = sc[L_RHOY];
   L.rho_x = sc[L_RHOX];
   L.rho_tau = sc[L_RHOT];
   L.a_coef = sc[L_ACOEF];
   L.alpha = sc[L_ALPHA];
   L.k0 = sc[L_K0];
-  L.init(dr_layout<kSpill>(smem, a.work, m, n, a.cones.nb), a.in[I_Y] + b * m,
-         a.in[I_X] + b * n, a.in[I_VY] + b * m, a.in[I_VX] + b * n, sc[L_TAU], sc[L_KAPPA]);
-  float* s_y = L.s_y;
-  float* s_wy = L.s_wy;  // y / tau
-  float* s_x = L.s_x;
-  float* s_vx = L.s_vx;
-  float* s_t = L.s_t;    // x / tau
-  float* red = L.red;
-
-  const float* A = L.op.A;
-  const float* bv = L.op.bv;
-  const float* cv = L.op.cv;
-  const float* qd = L.op.qd;
-  const float* Dv = a.in[I_D] + b * m;
-  const float* Ev = a.in[I_E] + b * n;
-  const float rho_x = L.rho_x;
+  L.init(smem, a.sh, rows, a.in[I_Y] + b * m, a.in[I_X] + b * n, a.in[I_VY] + b * m,
+         a.in[I_VX] + b * n, sc[L_TAU], sc[L_KAPPA]);
+  const RatioScal rs = {sc[L_SCB], sc[L_SCC], sc[L_NMB], sc[L_NMC], sc[L_EPS]};
   const float mu_stop = sc[L_MUSTOP], eps = sc[L_EPS];
-  const float sc_b = sc[L_SCB], sc_c = sc[L_SCC], nm_b = sc[L_NMB], nm_c = sc[L_NMC];
   const int t_max = a.t_max[b];
   float mu = sc[L_MU], tol = sc[L_TOL];
 
-  // max(res / eps) of `calc_qcp_residuals` in f32
-  auto error_ratio = [&]() -> float {
-    const float tau_s = nan_max(fabsf(L.tau), 1e-18f);
-    for (int k = tid; k < m; k += kThreads) s_wy[k] = s_y[k] / tau_s;
-    for (int j = tid; j < n; j += kThreads) s_t[j] = s_x[j] / tau_s;
-    __syncthreads();
-    // mx: |D (Ax - b)|, |D Ax|, |E dres|, |E Qx|;  p: <b,ys>, <xs,Qx>, <c,xs>
-    float mx[4] = {0.f, 0.f, 0.f, 0.f};
-    float p[3] = {0.f, 0.f, 0.f};
-    for (int k = warp; k < m; k += kWarps) {
-      const float ax = row_dot(A + (size_t)k * n, s_t, n, lane);
-      if (lane == 0) {
-        mx[0] = nan_max(mx[0], fabsf(Dv[k] * (ax - bv[k])));
-        mx[1] = nan_max(mx[1], fabsf(Dv[k] * ax));
-      }
-    }
-    for (int k = tid; k < m; k += kThreads) p[0] += bv[k] * s_wy[k];
-    for (int j = tid; j < n; j += kThreads) {
-      const float xs = s_t[j];
-      const float qx = qd[j] * xs;
-      const float ss = rho_x * s_vx[j] / tau_s;
-      const float dres = ((qx - col_dot(A, s_wy, m, n, j)) + cv[j]) - ss;
-      mx[2] = nan_max(mx[2], fabsf(Ev[j] * dres));
-      mx[3] = nan_max(mx[3], fabsf(Ev[j] * qx));
-      p[1] += xs * qx;
-      p[2] += cv[j] * xs;
-    }
-    block_max(mx, red);
-    block_sum(p, red);
-    const float res_pri = mx[0] / (sc_b + nan_max(mx[1], sc_b * nm_b));
-    const float res_dual = mx[2] / (sc_c + nan_max(sc_c * nm_c, mx[3]));
-    const float inv_bc = 1.0f / (sc_b * sc_c);
-    const float xqx_2 = 0.5f * p[1] * inv_bc;
-    const float ctx = p[2] * inv_bc, bty = p[0] * inv_bc;
-    const float rel_gap = fabsf((2.0f * xqx_2 + ctx) - bty) /
-                          (1.0f + nan_max(2.0f * xqx_2, nan_max(fabsf(ctx), fabsf(bty))));
-    return nan_max(res_pri, nan_max(res_dual, rel_gap)) / eps;
-  };
-
   // one flat loop of trips: `probe` iterations at the current mu, then the
-  // criterion decides whether the barrier advances
+  // criterion decides whether the barrier advances (alike in every CTA)
   int t = 0, stages = 0;
   float e = INFINITY;
   while (t < t_max && mu >= mu_stop) {
     for (int it = 0; it < probe; ++it) L.step(mu, t + it);
     t += probe;
-    e = L.err_inner();
-    const float ratio = error_ratio();
+    float ratio;
+    e = L.template probe<true>(rs, &ratio);
     float mu2, tol2;
     adjust_barrier(mu, ratio, eps, a.psi, &mu2, &tol2);
     if (e < tol) {
@@ -190,67 +126,75 @@ __device__ __forceinline__ void ladder_lane(Args a) {
   }
 
   L.store(a.out[O_Y] + b * m, a.out[O_X] + b * n, a.out[O_VY] + b * m, a.out[O_VX] + b * n);
-  if (tid == 0) {
+  if (L.rank == 0 && threadIdx.x == 0) {
     float* row = a.out[O_ROW] + b * kRowWidth;
     row[0] = L.tau; row[1] = L.kappa; row[2] = e; row[3] = (float)t;
     row[4] = mu; row[5] = tol; row[6] = (float)stages;
   }
+  // no CTA leaves while another may still read its shared memory
+  cluster_ops::sync();
 }
 
-// The two forms as kernels of their own, each bounded to one block of
-// kThreads per SM: without the bound ptxas built K4's shared form with 32
-// registers and spills, 1.7x slower on an H100.
-__global__ void __launch_bounds__(kThreads, 1) conic_ladder_kernel(Args a) {
-  ladder_lane<false>(a);
-}
-__global__ void __launch_bounds__(kThreads, 1) conic_ladder_spilled_kernel(Args a) {
-  ladder_lane<true>(a);
+// the kernel of (resident, spill)
+inline void (*kernel_of(int resident, int spill))(Args) {
+  switch (cluster_ops::form_of(resident, spill)) {
+    case cluster_ops::kResident: return conic_ladder_cluster_kernel<cluster_ops::kResident>;
+    case cluster_ops::kStreaming: return conic_ladder_cluster_kernel<cluster_ops::kStreaming>;
+    default: return conic_ladder_cluster_kernel<cluster_ops::kSpilled>;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one lane of shape (m, n) with nb cone blocks needs.
-long long abip_conic_ladder_smem_bytes(int m, int n, int nb) {
-  return dr_layout_floats(m, n, nb) * (long long)sizeof(float);
+// Dynamic shared memory of one CTA for shape (m, n) with nb cone blocks in
+// clusters of C CTAs, A's slice and the operands resident or not (0 spilled).
+long long abip_conic_ladder_smem_bytes(int m, int n, int nb, int C, int resident, int woodbury,
+                                       int spill) {
+  return dr_smem_bytes(m, n, nb, C, resident, woodbury, spill);
 }
 
-// Floats of global workspace per lane the spilled form needs.
-long long abip_conic_ladder_work_floats(int m, int n, int nb) {
-  return dr_work_floats(m, n, nb);
+// Floats of global workspace per CTA the streaming or spilled form needs.
+long long abip_conic_ladder_work_floats(int m, int n, int nb, int woodbury, int C, int spill) {
+  return dr_work_floats(m, n, nb, cluster_ops::cols_per_cta(n, C), woodbury != 0, spill != 0);
 }
 
 int abip_row_width() { return kRowWidth; }
 
+int abip_conic_ladder_threads() { return kThreads; }
+
 const char* abip_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Launches the ladder over B lanes on `stream`; returns the CUDA error code.
-// in: the 15 f32 LadderOperands, t_max (int32, B), then the int32 cone rows
-// code, blk (n) and start, length, soc (nb); out: y, x, vy, vx, row.  All
-// contiguous, lane-major.  work: B * abip_conic_ladder_work_floats(m, n, nb)
-// floats for the spilled form, where a block's shared memory does not hold
-// the lane's layout; null otherwise.
+// How many clusters of C CTAs of this shape and form the card holds at once
+// (cudaOccupancyMaxActiveClusters) into *clusters; returns the CUDA error.
+int abip_conic_ladder_max_active_clusters(int m, int n, int nb, int C, int resident,
+                                          int woodbury, int spill, int* clusters) {
+  const int smem = (int)dr_smem_bytes(m, n, nb, C, resident, woodbury, spill);
+  return cluster_ops::max_active<kThreads>(kernel_of(resident, spill), C, smem, clusters);
+}
+
+// Launches the ladder over B lanes, one cluster of C CTAs per lane, on
+// `stream`; returns the CUDA error code.  in: the 15 f32 LadderOperands,
+// t_max (int32, B), then the int32 cone rows code, blk (n) and start,
+// length, soc (nb); out: y, x, vy, vx, row.  All contiguous, lane-major.
+// work: B * C * abip_conic_ladder_work_floats(...) floats, 16-byte aligned,
+// for the streaming and spilled forms (unused when resident).
 int abip_conic_ladder(void* const* in, void* const* out, void* work, int B, int m, int n, int nb,
-                      int probe, float psi, int woodbury, void* stream) {
+                      int probe, float psi, int woodbury, int C, int resident, int spill,
+                      void* stream) {
+  if (C < 1 || C > cluster_ops::kMaxCluster || (!resident && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a;
   for (int k = 0; k < I_TMAX; ++k) a.in[k] = static_cast<const float*>(in[k]);
   a.t_max = static_cast<const int*>(in[I_TMAX]);
-  a.cones.code = static_cast<const int*>(in[I_CODE]);
-  a.cones.blk = static_cast<const int*>(in[I_BLK]);
-  a.cones.start = static_cast<const int*>(in[I_START]);
-  a.cones.length = static_cast<const int*>(in[I_LEN]);
-  a.cones.soc = static_cast<const int*>(in[I_SOC]);
-  a.cones.nb = nb;
   for (int k = 0; k < O_COUNT; ++k) a.out[k] = static_cast<float*>(out[k]);
-  a.m = m;
-  a.n = n;
+  spill = spill != 0 && !resident;
+  a.sh = dr_shape(in + I_CODE, work, m, n, nb, C, woodbury, spill != 0);
   a.probe = probe;
-  a.woodbury = woodbury;
   a.psi = psi;
-  a.work = static_cast<float*>(work);
-  return work ? dr_launch(conic_ladder_spilled_kernel, a, B, work, stream)
-              : dr_launch(conic_ladder_kernel, a, B, work, stream);
+  const int smem = (int)dr_smem_bytes(m, n, nb, C, resident, woodbury, spill);
+  return cluster_ops::launch<kThreads>(kernel_of(resident, spill), a, B, C, smem, stream);
 }
 
 }  // extern "C"

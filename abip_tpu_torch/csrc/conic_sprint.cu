@@ -1,5 +1,5 @@
 // Conic DR sprint for Hopper (sm_90a): up to T f32 iterations at one barrier,
-// stopping on the inner criterion, one thread block per lane.
+// stopping on the inner criterion, one thread-block cluster per lane.
 //
 // Replaces the TPU kernel `_dr_kernel_batched` of
 // `abip_tpu/ops/conic_pallas.py` (Pallas, grid over lanes; entry
@@ -11,17 +11,22 @@
 // f32 inner criterion (`qcp_config.c:518-557`), while t < t_max[b] and
 // err >= thresh.  The first iteration ever (k0 + i == 0) takes tau_t = 1.
 //
-// Layout, residency and bound are the ladder's (csrc/conic_ladder.cu): the
-// iteration and the criterion are `conic::DrLane` of conic_common.cuh; the
-// vectors in shared memory (spilled: a global workspace), A and G^-1
-// (Woodbury) or S^-1 (primal) read
-// through L2, four A passes and one G^-1 pass per Woodbury iteration and two
-// more A passes per trip.  The A passes through L2 into ONE SM per lane bound
-// it, with B=16 lanes busy on 16 of the H100's 132 SMs.
+// Layout and exchanges are `conic_cluster::ClusterDrLane`'s
+// (csrc/conic_cluster.cuh), shared with the ladder (csrc/conic_ladder.cu):
+// lane b is cluster b of C CTAs (launched with cudaLaunchKernelEx; C and the
+// residency from `ops/conic_dr.py:dr_launch_plan`), each owning a column
+// slice of A, resident in its shared memory where it fits; three cluster
+// exchanges per Woodbury iteration, one per probe.  Every CTA takes the
+// stop decision on the same bits.
+//
+// What bounds it on this card: latency, not HBM: per iteration four passes
+// over A's slice (shared memory or L2), one over the CTA's rows of G^-1
+// (L2), three cluster barriers with their rounds of remote loads, and the
+// dependent chain of the tau quadratic and the cone prox.
 
-#include "conic_common.cuh"
+#include "conic_cluster.cuh"
 
-using namespace conic;
+using namespace conic_cluster;
 
 namespace {
 
@@ -41,110 +46,115 @@ constexpr int kRowWidth = 4;  // [tau, kappa, err, t_done]
 struct Args {
   const float* in[I_TMAX];
   const int* t_max;
-  Cones cones;
   float* out[O_COUNT];
-  float* work;  // spilled form: dr_work_floats floats per lane, else null
-  int m, n, probe, woodbury;
+  DrShape sh;
+  int probe;
 };
 
-// One lane, its vectors in shared memory or (kSpill) in its slice of the
-// global workspace.
-template <bool kSpill>
-__device__ __forceinline__ void sprint_lane(Args a) {
-  extern __shared__ float smem[];
-  const int m = a.m, n = a.n, probe = a.probe;
-  const size_t b = blockIdx.x;
-  const int mk = a.woodbury ? m : n;
+template <int kForm>
+__global__ void __launch_bounds__(kThreads, 1) conic_sprint_cluster_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  const int m = a.sh.m, n = a.sh.n, probe = a.probe;
+  const int C = (int)cooperative_groups::this_cluster().num_blocks();
+  const size_t b = blockIdx.x / C;
+  const int mk = a.sh.woodbury ? m : n;
   const float* sc = a.in[I_SCAL] + b * C_COUNT;
+  const DrRows rows = {a.in[I_A] + b * m * n, a.in[I_MINV] + b * mk * mk, a.in[I_HINV] + b * n,
+                       a.in[I_RY] + b * m,    a.in[I_RX] + b * n,         a.in[I_B] + b * m,
+                       a.in[I_C] + b * n,     a.in[I_QD] + b * n,         nullptr,
+                       nullptr};
 
-  DrLane L;
-  L.op = {a.in[I_A] + b * m * n, a.in[I_MINV] + b * mk * mk, a.in[I_HINV] + b * n,
-          a.in[I_RY] + b * m,    a.in[I_RX] + b * n,         a.in[I_B] + b * m,
-          a.in[I_C] + b * n,     a.in[I_QD] + b * n};
-  L.cn = a.cones;
-  L.m = m;
-  L.n = n;
-  L.woodbury = a.woodbury != 0;
+  ClusterDrLane<kForm> L;
   L.rho_y = sc[C_RHOY];
   L.rho_x = sc[C_RHOX];
   L.rho_tau = sc[C_RHOT];
   L.a_coef = sc[C_ACOEF];
   L.alpha = sc[C_ALPHA];
   L.k0 = sc[C_K0];
-  L.init(dr_layout<kSpill>(smem, a.work, m, n, a.cones.nb), a.in[I_Y] + b * m,
-         a.in[I_X] + b * n, a.in[I_VY] + b * m, a.in[I_VX] + b * n, sc[C_TAU], sc[C_KAPPA]);
+  L.init(smem, a.sh, rows, a.in[I_Y] + b * m, a.in[I_X] + b * n, a.in[I_VY] + b * m,
+         a.in[I_VX] + b * n, sc[C_TAU], sc[C_KAPPA]);
   const float lam = sc[C_LAM], thresh = sc[C_THRESH];
   const int t_max = a.t_max[b];
+  const RatioScal none = {};
 
   int t = 0;
   float e = INFINITY;
-  while (t < t_max && e >= thresh) {
+  while (t < t_max && e >= thresh) {  // the same decision in every CTA
     for (int it = 0; it < probe; ++it) L.step(lam, t + it);
     t += probe;
-    e = L.err_inner();
+    e = L.template probe<false>(none, nullptr);
   }
 
   L.store(a.out[O_Y] + b * m, a.out[O_X] + b * n, a.out[O_VY] + b * m, a.out[O_VX] + b * n);
-  if (threadIdx.x == 0) {
+  if (L.rank == 0 && threadIdx.x == 0) {
     float* row = a.out[O_ROW] + b * kRowWidth;
     row[0] = L.tau; row[1] = L.kappa; row[2] = e; row[3] = (float)t;
   }
+  // no CTA leaves while another may still read its shared memory
+  cluster_ops::sync();
 }
 
-// The two forms as kernels of their own, each bounded to one block of
-// kThreads per SM: without the bound ptxas built K4's shared form with 32
-// registers and spills, 1.7x slower on an H100.
-__global__ void __launch_bounds__(kThreads, 1) conic_sprint_kernel(Args a) {
-  sprint_lane<false>(a);
-}
-__global__ void __launch_bounds__(kThreads, 1) conic_sprint_spilled_kernel(Args a) {
-  sprint_lane<true>(a);
+// the kernel of (resident, spill)
+inline void (*kernel_of(int resident, int spill))(Args) {
+  switch (cluster_ops::form_of(resident, spill)) {
+    case cluster_ops::kResident: return conic_sprint_cluster_kernel<cluster_ops::kResident>;
+    case cluster_ops::kStreaming: return conic_sprint_cluster_kernel<cluster_ops::kStreaming>;
+    default: return conic_sprint_cluster_kernel<cluster_ops::kSpilled>;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory one lane of shape (m, n) with nb cone blocks needs.
-long long abip_conic_sprint_smem_bytes(int m, int n, int nb) {
-  return dr_layout_floats(m, n, nb) * (long long)sizeof(float);
+// Dynamic shared memory of one CTA for shape (m, n) with nb cone blocks in
+// clusters of C CTAs, A's slice and the operands resident or not (0 spilled).
+long long abip_conic_sprint_smem_bytes(int m, int n, int nb, int C, int resident, int woodbury,
+                                       int spill) {
+  return dr_smem_bytes(m, n, nb, C, resident, woodbury, spill);
 }
 
-// Floats of global workspace per lane the spilled form needs.
-long long abip_conic_sprint_work_floats(int m, int n, int nb) {
-  return dr_work_floats(m, n, nb);
+// Floats of global workspace per CTA the streaming or spilled form needs.
+long long abip_conic_sprint_work_floats(int m, int n, int nb, int woodbury, int C, int spill) {
+  return dr_work_floats(m, n, nb, cluster_ops::cols_per_cta(n, C), woodbury != 0, spill != 0);
 }
 
 int abip_row_width() { return kRowWidth; }
 
+int abip_conic_sprint_threads() { return kThreads; }
+
 const char* abip_cuda_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
-// Launches the sprint over B lanes on `stream`; returns the CUDA error code.
-// in: the 13 f32 DrSprintOperands, t_max (int32, B), then the int32 cone rows
-// code, blk (n) and start, length, soc (nb); out: y, x, vy, vx, row.  All
-// contiguous, lane-major.  work: B * abip_conic_sprint_work_floats(m, n, nb)
-// floats for the spilled form, where a block's shared memory does not hold
-// the lane's layout; null otherwise.  `psi` is not used (the barrier is fixed).
+// How many clusters of C CTAs of this shape and form the card holds at once
+// (cudaOccupancyMaxActiveClusters) into *clusters; returns the CUDA error.
+int abip_conic_sprint_max_active_clusters(int m, int n, int nb, int C, int resident,
+                                          int woodbury, int spill, int* clusters) {
+  const int smem = (int)dr_smem_bytes(m, n, nb, C, resident, woodbury, spill);
+  return cluster_ops::max_active<kThreads>(kernel_of(resident, spill), C, smem, clusters);
+}
+
+// Launches the sprint over B lanes, one cluster of C CTAs per lane, on
+// `stream`; returns the CUDA error code.  in: the 13 f32 DrSprintOperands,
+// t_max (int32, B), then the int32 cone rows code, blk (n) and start,
+// length, soc (nb); out: y, x, vy, vx, row.  All contiguous, lane-major.
+// work: B * C * abip_conic_sprint_work_floats(...) floats, 16-byte aligned,
+// for the streaming and spilled forms (unused when resident).  `psi` is not
+// used (the barrier is fixed).
 int abip_conic_sprint(void* const* in, void* const* out, void* work, int B, int m, int n, int nb,
-                      int probe, float psi, int woodbury, void* stream) {
+                      int probe, float psi, int woodbury, int C, int resident, int spill,
+                      void* stream) {
   (void)psi;
+  if (C < 1 || C > cluster_ops::kMaxCluster || (!resident && work == nullptr))
+    return (int)cudaErrorInvalidValue;
   Args a;
   for (int k = 0; k < I_TMAX; ++k) a.in[k] = static_cast<const float*>(in[k]);
   a.t_max = static_cast<const int*>(in[I_TMAX]);
-  a.cones.code = static_cast<const int*>(in[I_CODE]);
-  a.cones.blk = static_cast<const int*>(in[I_BLK]);
-  a.cones.start = static_cast<const int*>(in[I_START]);
-  a.cones.length = static_cast<const int*>(in[I_LEN]);
-  a.cones.soc = static_cast<const int*>(in[I_SOC]);
-  a.cones.nb = nb;
   for (int k = 0; k < O_COUNT; ++k) a.out[k] = static_cast<float*>(out[k]);
-  a.m = m;
-  a.n = n;
+  spill = spill != 0 && !resident;
+  a.sh = dr_shape(in + I_CODE, work, m, n, nb, C, woodbury, spill != 0);
   a.probe = probe;
-  a.woodbury = woodbury;
-  a.work = static_cast<float*>(work);
-  return work ? dr_launch(conic_sprint_spilled_kernel, a, B, work, stream)
-              : dr_launch(conic_sprint_kernel, a, B, work, stream);
+  const int smem = (int)dr_smem_bytes(m, n, nb, C, resident, woodbury, spill);
+  return cluster_ops::launch<kThreads>(kernel_of(resident, spill), a, B, C, smem, stream);
 }
 
 }  // extern "C"

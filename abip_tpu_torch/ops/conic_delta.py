@@ -47,8 +47,8 @@ from ..device import smem_optin
 from .admm_delta import (SMEM_OPTIN, DeltaPlan, _cuda_error, _mv, _per_lane,
                          _rmv, check_plan, cluster_workspace,
                          delta_cols_per_cta)
-from .conic_dr import (_bsum, _cone_kernel_inputs, _elementwise_prox, _full,
-                       _need_ieee, _unpad, check_operands, solve_S)
+from .conic_dr import (_al4, _bsum, _cone_kernel_inputs, _elementwise_prox,
+                       _full, _need_ieee, _unpad, check_operands, solve_S)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -535,10 +535,6 @@ _CD_MVECS = 5    # m-side vectors besides u (global where streaming)
 _CD_MOPS = 3     # m-side operands a resident CTA holds: ry, e_y, e_vy
 _CD_BLKVALS = 30  # values per cone block that touches a CTA (10, and
                   # 20 of the anchor's chain)
-
-
-def _al4(x):
-    return -(-x // 4) * 4
 
 
 def conic_delta_smem_bytes(m, n, nb, cluster, resident, woodbury=True):

@@ -17,10 +17,12 @@ fit: every `probe` iterations the f32 inner criterion
 `_dr_ladder_compute` and `_dr_sprint_compute` are the plain PyTorch
 versions (CPU tensors, and the references the kernels are held to);
 `csrc/conic_ladder.cu` and `csrc/conic_sprint.cu` are the CUDA kernels,
-which share the iteration (`csrc/conic_common.cuh`; a lane's vectors in
-shared memory, or spilled to a global workspace where a block's shared
-memory does not hold them, so that they take every shape).  The entries
-take the plain version on CPU tensors and the kernel on CUDA tensors.
+one thread-block cluster per lane on the shared iteration of
+`csrc/conic_cluster.cuh` (`dr_launch_plan`: the cluster size, A's column
+slice resident in shared memory or streamed through L2, or the layout
+spilled to a global workspace where no shared memory holds a CTA, so that
+they take every shape).  The entries take the plain version on CPU
+tensors and the kernel on CUDA tensors.
 
 Layout: lane axis first, no padding.  Rows are `(B, m)`/`(B, n)` f32,
 `A` is `(B, m, n)`, `Minv` is G^-1 `(B, m, m)` (Woodbury form, with the
@@ -42,7 +44,9 @@ import torch
 
 from ..cones import E_FREE, E_NN, E_SOC_H, Blocks, ConeOperands
 from ..device import smem_optin
-from .admm_delta import _mv, _per_lane, _rmv
+from .admm_delta import (SMEM_OPTIN, DeltaPlan, _cuda_error, _mv, _per_lane,
+                         _rmv, check_plan, cluster_workspace,
+                         delta_cols_per_cta)
 
 f32 = torch.float32
 f64 = torch.float64
@@ -378,15 +382,64 @@ def _dr_ladder_compute(op: LadderOperands, co: ConeOperands, t_max, *,
 # the CUDA kernels' bindings (shared with ops/conic_delta.py)
 # ---------------------------------------------------------------------------
 
-def dr_smem_bytes(m, n, nb):
-    """Dynamic shared memory of the one block per lane of K2 and K4
-    (`csrc/conic_common.cuh:dr_layout_floats`: `dr_smem_floats` and the
-    32 warps' reduction scratch of 6).  Where it exceeds a block's shared
-    memory, the kernels spill: the same layout lies in the lane's slice
-    of a global workspace (where the reference runs its XLA version
-    because its kernel does not fit VMEM, `abip_tpu/ops/conic_pallas.py:
-    496`, `:805`)."""
-    return 4 * (6 * m + 4 * n + 3 * nb + 32 * 6)
+# K2 and K4: CTAs of DR_THREADS threads, one cluster per lane
+# (`csrc/conic_cluster.cuh`); the launch plans both kernels try, in order:
+# (cluster size, A's slice resident), the last one also spilled.  At
+# dim-1020 B=16 C=8 with A resident is the fastest form of both (PERF.md),
+# though an H100 holds only 15 such clusters at once; where A's slice does
+# not fit, C=6 streams with 17 clusters at once, then C=16.
+DR_THREADS = 384
+DR_PLANS = ((8, True), (6, False), (16, False))
+# per-CTA layout (`conic_cluster.cuh:dr_smem_floats`)
+_DR_SCRATCH = (DR_THREADS // 32) * 8 + 2 * 28 + 12  # reduction, slots, sums
+_DR_XBUF = 2 * 2     # two exchanges' buffers of two partial m-vectors
+_DR_XSTATE = 4       # x, vx, t, zx
+_DR_BLKVALS = 4      # values per cone block that touches a CTA
+_DR_MVECS = 5        # y, vy, wy, A t, zy (global where streaming)
+_DR_MOPS = 3         # ry, b, D
+_DR_XOPS = 5         # hinv, rx, qd, c, E
+
+
+def _al4(x):
+    return -(-x // 4) * 4
+
+
+def dr_smem_bytes(m, n, nb, cluster, resident, woodbury=True):
+    """Dynamic shared memory of one CTA of K2 and K4
+    (`csrc/conic_cluster.cuh:dr_smem_floats`), every array padded to 16
+    bytes: the scratch, two exchanges' buffers of two partial m-vectors,
+    u, the four x-side state slices of nc = `delta_cols_per_cta`
+    columns, the direct form's whole rhs (n), four values per cone block
+    that touches the CTA (at most min(nb, nc)), the split column dots'
+    partials (max(nc, 384)); resident, the five m-side state vectors and
+    three m-side operands, A's slice (its rows at a stride of 4 mod 8
+    floats) and five x-side operand slices."""
+    nc = delta_cols_per_cta(n, cluster)
+    mp = _al4(m)
+    floats = (_DR_SCRATCH + (_DR_XBUF + 1) * mp + _DR_XSTATE * nc
+              + (0 if woodbury else _al4(n)) + _al4(_DR_BLKVALS * min(nb, nc))
+              + max(nc, DR_THREADS))
+    if resident:
+        floats += ((_DR_MVECS + _DR_MOPS) * mp + m * (nc + 4 * (nc % 8 == 0))
+                   + _DR_XOPS * nc)
+    return 4 * floats
+
+
+def dr_launch_plan(m, n, nb, smem_limit=SMEM_OPTIN, woodbury=True):
+    """The launch of K2 and K4 at shape (m, n) with nb cone blocks (a
+    `DeltaPlan`: cluster size, residency, shared memory per CTA): the
+    first of DR_PLANS whose CTA fits `smem_limit`, else the last one
+    spilled, which takes every shape.  Where the reference runs its XLA
+    version because its kernel does not fit VMEM
+    (`abip_tpu/ops/conic_pallas.py:496`, `:805`), the port's kernels
+    stream or spill."""
+    if m < 1 or n < 1:
+        raise ValueError(f"empty launch: m={m} n={n}")
+    for cluster, resident in DR_PLANS:
+        nbytes = dr_smem_bytes(m, n, nb, cluster, resident, woodbury)
+        if nbytes <= smem_limit:
+            return DeltaPlan(cluster, resident, nbytes)
+    return DeltaPlan(DR_PLANS[-1][0], False, 0, spill=True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,21 +450,47 @@ def kernel_lib(name):
 
     lib = load(name).lib
     entry = getattr(lib, f"abip_{name}")
-    entry.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                      ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                      ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                      ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    entry.argtypes = ([ctypes.POINTER(ctypes.c_void_p),
+                       ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p]
+                      + [ctypes.c_int] * 5 + [ctypes.c_float]
+                      + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     entry.restype = ctypes.c_int
-    for what in ("smem_bytes", "work_floats"):
-        fn = getattr(lib, f"abip_{name}_{what}")
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_longlong
+    smem = getattr(lib, f"abip_{name}_smem_bytes")
+    smem.argtypes = [ctypes.c_int] * 7
+    smem.restype = ctypes.c_longlong
+    work = getattr(lib, f"abip_{name}_work_floats")
+    work.argtypes = [ctypes.c_int] * 6
+    work.restype = ctypes.c_longlong
+    occ = getattr(lib, f"abip_{name}_max_active_clusters")
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    occ.restype = ctypes.c_int
+    threads = getattr(lib, f"abip_{name}_threads")
+    for fn in (lib.abip_row_width, threads):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     lib.abip_cuda_error_string.argtypes = [ctypes.c_int]
     lib.abip_cuda_error_string.restype = ctypes.c_char_p
-    lib.abip_row_width.argtypes = []
-    lib.abip_row_width.restype = ctypes.c_int
+    if threads() != DR_THREADS or work(5, 1, 0, 1, 1, 0) != _DR_MVECS * 8:
+        raise RuntimeError(f"csrc/{name}.cu and its wrapper disagree on the "
+                           "threads or the workspace per CTA")
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def dr_max_active_clusters(name, m, n, nb, plan: DeltaPlan, woodbury=True,
+                           device_index=0):
+    """How many of the plan's clusters of `csrc/<name>.cu` the card holds
+    at once (`cudaOccupancyMaxActiveClusters`).  A lane is one cluster;
+    more lanes than this wait for a second wave."""
+    lib = kernel_lib(name)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = getattr(lib, f"abip_{name}_max_active_clusters")(
+            m, n, nb, plan.cluster, int(plan.resident), int(woodbury),
+            int(plan.spill), ctypes.byref(out))
+    if err:
+        raise _cuda_error(lib, f"{name} occupancy query failed", err)
+    return out.value
 
 
 def check_operands(named, want, dev):
@@ -427,33 +506,42 @@ def check_operands(named, want, dev):
 
 
 def launch(name, ins, outs, B, m, n, nb, probe, psi, woodbury, dev,
-           row_width):
-    """One launch of `csrc/<name>.cu` over B lanes on the current stream,
-    spilled where the lane's layout exceeds the card's shared memory per
-    block; raises on a refused launch."""
+           row_width, plan=None):
+    """One launch of `csrc/<name>.cu` over B lanes, one cluster per lane,
+    on the current stream, by `dr_launch_plan` (or `plan`); raises on a
+    plan the card cannot hold and on a refused launch."""
     lib = kernel_lib(name)
     if lib.abip_row_width() != row_width:
         raise RuntimeError(f"csrc/{name}.cu and its wrapper disagree on the "
                            "output row width")
-    smem = getattr(lib, f"abip_{name}_smem_bytes")(m, n, nb)
     limit = smem_optin(dev)
-    if smem != dr_smem_bytes(m, n, nb):
+    if plan is None:
+        plan = dr_launch_plan(m, n, nb, limit, woodbury)
+    check_plan(plan, limit)
+    if getattr(lib, f"abip_{name}_smem_bytes")(
+            m, n, nb, plan.cluster, int(plan.resident), int(woodbury),
+            int(plan.spill)) != plan.smem_bytes:
         raise RuntimeError(f"csrc/{name}.cu and its wrapper disagree on the "
-                           "shared memory of a block")
-    work = None if smem <= limit else torch.empty(
-        (B * getattr(lib, f"abip_{name}_work_floats")(m, n, nb),),
-        dtype=f32, device=dev)
+                           "shared memory of a CTA")
+    if dr_max_active_clusters(name, m, n, nb, plan, woodbury,
+                              dev.index or 0) < 1:
+        raise RuntimeError(
+            f"the card cannot hold one cluster of {plan.cluster} CTAs with "
+            f"{plan.smem_bytes} B of shared memory each (m={m} n={n})")
+    # the streaming form keeps each CTA's m-side state in global memory,
+    # the spilled form its whole layout
+    work = cluster_workspace(getattr(lib, f"abip_{name}_work_floats"), B,
+                             plan, dev, m, n, nb, int(woodbury))
     inp = (ctypes.c_void_p * len(ins))(*[x.data_ptr() for x in ins])
     outp = (ctypes.c_void_p * len(outs))(*[x.data_ptr() for x in outs])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, f"abip_{name}")(
             inp, outp, None if work is None else work.data_ptr(), B, m, n,
-            nb, probe, ctypes.c_float(psi),
-            int(woodbury), ctypes.c_void_p(stream))
+            nb, probe, ctypes.c_float(psi), int(woodbury), plan.cluster,
+            int(plan.resident), int(plan.spill), ctypes.c_void_p(stream))
     if err:
-        raise RuntimeError(f"{name} kernel launch failed: "
-                           + lib.abip_cuda_error_string(err).decode())
+        raise _cuda_error(lib, f"{name} kernel launch failed", err)
 
 
 def _cone_kernel_inputs(co, dev):
@@ -468,11 +556,14 @@ def _cone_kernel_inputs(co, dev):
 
 
 def ladder_cuda(op: LadderOperands, co: ConeOperands, t_max, *, probe, psi,
-                woodbury):
-    """The ladder on the card: one launch of `csrc/conic_ladder.cu` over
-    the lanes.  Same contract as `_dr_ladder_compute`.  Raises on an
-    operand the kernel does not take and on a refused launch; never
-    falls back."""
+                woodbury, plan=None):
+    """The ladder on the card: one launch of `csrc/conic_ladder.cu`, one
+    thread-block cluster per lane, by `dr_launch_plan`.
+    Same contract as `_dr_ladder_compute`.  `plan` (a `DeltaPlan`)
+    replaces the launch plan, to time other cluster sizes and check other
+    forms; the solvers never pass it.  Raises on an operand the kernel
+    does not take, on a plan the card cannot hold and on a refused
+    launch; never falls back."""
     B, m, n = op.A.shape
     dev = op.A.device
     if dev.type != "cuda":
@@ -490,7 +581,7 @@ def ladder_cuda(op: LadderOperands, co: ConeOperands, t_max, *, probe, psi,
             for k in (m, n, m, n, LADDER_ROW)]
     launch("conic_ladder", list(op) + [t_max] + _cone_kernel_inputs(co, dev),
            outs, B, m, n, co.start.shape[0], probe, psi, woodbury, dev,
-           LADDER_ROW)
+           LADDER_ROW, plan)
     ladder_cuda.launches += 1
     return tuple(outs)
 
@@ -627,10 +718,12 @@ def _dr_sprint_compute(op: DrSprintOperands, co: ConeOperands, t_max, *,
 
 
 def dr_sprint_cuda(op: DrSprintOperands, co: ConeOperands, t_max, *, probe,
-                   woodbury):
-    """The sprint on the card: one launch of `csrc/conic_sprint.cu` over
-    the lanes.  Same contract as `_dr_sprint_compute`.  Raises on an
-    operand the kernel does not take and on a refused launch; never
+                   woodbury, plan=None):
+    """The sprint on the card: one launch of `csrc/conic_sprint.cu`, one
+    thread-block cluster per lane, by `dr_launch_plan`.
+    Same contract as `_dr_sprint_compute`.  `plan` replaces the launch
+    plan (as `ladder_cuda`'s).  Raises on an operand the kernel does not
+    take, on a plan the card cannot hold and on a refused launch; never
     falls back."""
     B, m, n = op.A.shape
     dev = op.A.device
@@ -649,7 +742,7 @@ def dr_sprint_cuda(op: DrSprintOperands, co: ConeOperands, t_max, *, probe,
             for k in (m, n, m, n, SPRINT_ROW)]
     launch("conic_sprint", list(op) + [t_max] + _cone_kernel_inputs(co, dev),
            outs, B, m, n, co.start.shape[0], probe, 1.0, woodbury, dev,
-           SPRINT_ROW)
+           SPRINT_ROW, plan)
     dr_sprint_cuda.launches += 1
     return tuple(outs)
 

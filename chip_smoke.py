@@ -13,8 +13,9 @@ duration:
    `csrc/conic_ladder.cu` (conic phase 1), K4 `csrc/conic_sprint.cu`
    (conic one-stage sprint), K3 `csrc/conic_delta.cu` (conic delta
    chunk), K5 `csrc/bcsr_spmv.cu` (sparse product over the stored
-   entries), K8 `csrc/barrier_step.cu` (fused barrier step); K1, K3, K6
-   and K7 run one thread-block cluster per lane;
+   entries), K8 `csrc/barrier_step.cu` (fused barrier step); K1, K2,
+   K3, K4, K6 and K7 run one thread-block cluster per lane; the build
+   prints each kernel's registers and spills;
 2. host LP driver: hold K5 against its plain version, the tile product
    and scipy's f64 product (A and A' of the smoke instance, ragged
    shapes, rows of widely differing lengths; f64 and f32);
@@ -34,14 +35,15 @@ duration:
    time it, and one chunk at each cluster size and spilled; profile it;
 4. conic: hold K2 against its plain version on phase 1 from the cold
    start (dim-1020 B=16 and a small primal-form batch with a diagonal
-   Q), and K3 on mid-solve anchors in the form its launch plan picks
-   (T=64, thresh=0; then thresholds that stop lanes mid-chunk); solve a
-   fresh B=16 dim-1020 batch through `solve_qcp_batch(engine="sprint2")`
-   with the options of `tools/conic_bench.py` against the instances'
-   known optima; time it, one K2 launch and one K3 chunk against their
-   plain versions (K3 at every cluster size and residency whose CTA fits
-   the card, with the clusters the card holds at once; both spilled
-   too), and the f64 pieces; profile one solve;
+   Q), and K3 on mid-solve anchors, each in the form its launch plan
+   picks (T=64, thresh=0; then thresholds that stop lanes mid-chunk);
+   solve a fresh B=16 dim-1020 batch through
+   `solve_qcp_batch(engine="sprint2")` with the options of
+   `tools/conic_bench.py` against the instances' known optima; time it,
+   one K2 launch and one K3 chunk against their plain versions (K2 at
+   cluster sizes 4, 6, 8 and 16, K3 at every cluster size, each in every
+   residency whose CTA fits the card and spilled, with the clusters the
+   card holds at once), and the f64 pieces; profile one solve;
 5. the sprint engines: hold K6 and K7 against their plain version on
    mid-solve states (the LP shapes of phase 3; T=64 and T=32, then
    thresholds that stop lanes mid-chunk); solve fresh B=16 smoke
@@ -51,23 +53,31 @@ duration:
    sprint engine under cadence "cond" (K7), each against HiGHS; time K6
    and K7, at cluster sizes 4, 5, 6, 8 and 16 and spilled too; hold K4
    against its
-   plain version (the conic cases of phase
+   plain version in its plan's form (the conic cases of phase
    4, from the cold start and at k0=64, then mid-chunk stops); solve a
    fresh dim-1020 batch with `phase1="sprint"` (K4 + K3) against the
-   known optima and time it as a median of 3; hold K8 against its plain
-   version in f32 and f64, including the prox arguments where the
-   reference's guarded form fails; time K4 (spilled too) and K8;
+   known optima, time it as a median of 3 and profile one solve; hold K8
+   against its plain version in f32 and f64, including the prox
+   arguments where the reference's guarded form fails; time K4 (at
+   cluster sizes 4, 6, 8 and 16 in every residency that fits and
+   spilled) and K8;
 6. the shape repair: every kernel takes every shape, spilling its
-   layout to a global workspace where no shared memory holds a CTA (a
-   block, for K2 and K4).  With the launch plans held to no shared
-   memory (`device.limit_shared_memory(0)`), hold K1, K2, K3, K4, K6
-   and K7 spilled against their plain versions (the parity checks of
-   phases 3-5) and solve fresh LP sprint2 + delta and conic
-   phase1="sprint" batches that way; then a conic batch of n=14,500
-   (10 SOC(5), 5 RSOC(4), the rest nonneg, m=50), whose lane one block
-   of K2 cannot hold in shared memory, solved on the card through the
-   kernels (K2 spilled): every lane Solved within 1e-5 of its known
-   optimum, as the reference solves it.
+   layout to a global workspace where no shared memory holds a CTA.
+   With the launch plans held to no shared memory
+   (`device.limit_shared_memory(0)`), hold K1, K2, K3, K4, K6 and K7
+   spilled against their plain versions (the parity checks of phases
+   3-5) and solve fresh LP sprint2 + delta and conic phase1="sprint"
+   batches that way; then a conic batch of n=14,500 (10 SOC(5), 5
+   RSOC(4), the rest nonneg, m=50), whose lane one block per lane could
+   not hold in shared memory, solved on the card through the kernels
+   (K2 with A streamed through L2 at C=6): every lane Solved within 1e-5
+   of its known optimum, as the reference solves it.
+
+    python3 chip_smoke.py --ab PARENT
+
+times K2 and K4 in this checkout and in the checkout at PARENT (the
+parent commit, unpacked with `git archive`), each in a process of its
+own, in the order this, PARENT, this, and prints their times.
 
 Each main path runs with its kernels' launch counts set to 0 just
 before it and read just after.  Exits nonzero, printing no result,
@@ -664,11 +674,30 @@ CONIC_CASES = (("dim-1020 B=16 Woodbury", dict(seed0=8400)),
                      diag_q=True)))
 
 
-def ladder_parity(torch, dev, label, case):
+def dr_form_plan(torch, P, co, form):
+    """The `DeltaPlan` of K2/K4 for a prepared batch in `form` =
+    (cluster, resident) or (cluster, "spill"); None for the launch plan's
+    own form."""
+    from abip_tpu_torch.ops.admm_delta import DeltaPlan
+    from abip_tpu_torch.ops.conic_dr import dr_smem_bytes
+
+    if form is None:
+        return None
+    cluster, resident = form
+    if resident == "spill":
+        return DeltaPlan(cluster, False, 0, spill=True)
+    _, m, n = P.A.shape
+    return DeltaPlan(cluster, resident, dr_smem_bytes(
+        m, n, co.start.shape[0], cluster, resident,
+        P.dss.form == "woodbury"))
+
+
+def ladder_parity(torch, dev, label, case, form=None):
     """K2 against the plain ladder on phase 1 from the cold start of one
-    batch: equal t_done, stages and mu; the stated tolerance; at most
-    ACC_RATIO times the plain version's distance from an f64 run.
-    Returns the largest |kernel - plain|."""
+    batch, in the form of its launch plan (or in `form`, as
+    `dr_form_plan` takes it): equal t_done, stages and mu; the stated
+    tolerance; at most ACC_RATIO times the plain version's distance from
+    an f64 run.  Returns the largest |kernel - plain|."""
     from abip_tpu_torch.cones import cone_operands
     from abip_tpu_torch.ops.conic_dr import (LadderOperands,
                                              _dr_ladder_compute, ladder_cuda)
@@ -677,9 +706,11 @@ def ladder_parity(torch, dev, label, case):
     P = conic_prepared(torch, cones, stacks, dev)
     op = cold_ladder_operands(torch, P, cones)
     co = cone_operands(cones, dev)
+    plan = dr_form_plan(torch, P, co, form)
+    print(f"K2 {label}: {dr_plan_line(torch, P, co, 'ladder', plan)}")
     t_max = torch.full((op.A.shape[0],), 2048, dtype=torch.int32, device=dev)
     run = dict(probe=PROBE, psi=1.0, woodbury=P.dss.form == "woodbury")
-    ker = ladder_cuda(op, co, t_max, **run)
+    ker = ladder_cuda(op, co, t_max, plan=plan, **run)
     plain = _dr_ladder_compute(op, co, t_max, **run)
     exact = _dr_ladder_compute(LadderOperands(*[x.double() for x in op]), co,
                                t_max, **run)
@@ -750,6 +781,30 @@ def delta_parity(torch, dev, label, case, plan=None):
           f"plain {tp} (within one probe; each threshold splits a drop of at "
           f"least {min(drop):.3f}x in the plain criterion)")
     return err
+
+
+def dr_plan_line(torch, P, co, kernel, plan=None):
+    """K2's (`kernel="ladder"`) or K4's (`"sprint"`) launch plan for a
+    prepared batch (or `plan`), the clusters the card holds at once, and
+    the cone blocks that straddle CTAs."""
+    from abip_tpu_torch.ops.conic_delta import cluster_block_spans
+    from abip_tpu_torch.ops.conic_dr import (dr_launch_plan,
+                                             dr_max_active_clusters)
+
+    _, m, n = P.A.shape
+    nb = co.start.shape[0]
+    wb = P.dss.form == "woodbury"
+    plan = plan or dr_launch_plan(m, n, nb, woodbury=wb)
+    spans, _ = cluster_block_spans(co.start.cpu(), co.length.cpu(), n,
+                                   plan.cluster)
+    straddle = sum(lo != hi for lo, hi in spans)
+    form = ("A resident, the inverse through L2" if plan.resident else
+            "A and the inverse through L2" + (", spilled" if plan.spill
+                                              else ""))
+    held = dr_max_active_clusters(f"conic_{kernel}", m, n, nb, plan, wb)
+    return (f"C={plan.cluster} ({form}, {plan.smem_bytes} B shared memory "
+            f"per CTA, {held} clusters at once), {straddle} of {nb} cone "
+            f"blocks straddle CTAs")
 
 
 def k3_plan_line(torch, P, co, plan=None):
@@ -867,7 +922,6 @@ def phase_conic_timing(torch, dev, card):
                                                 conic_delta_launch_plan,
                                                 conic_delta_smem_bytes)
     from abip_tpu_torch.cones import cone_operands
-    from abip_tpu_torch.device import limit_shared_memory
     from abip_tpu_torch.ops.conic_dr import _dr_ladder_compute, ladder_cuda
     from abip_tpu_torch.utils.timing import cuda_ms, wall_s
 
@@ -890,6 +944,9 @@ def phase_conic_timing(torch, dev, card):
     op = cold_ladder_operands(torch, P, cones)
     t_max = torch.full((B,), 2048, dtype=torch.int32, device=dev)
     run = dict(probe=PROBE, psi=1.0, woodbury=True)
+    dr_form_sweep(torch, dev, card, "ladder",
+                  lambda p: ladder_cuda(op, co, t_max, plan=p, **run), P, co,
+                  "K2 one phase-1 launch B=16 dim-1020", 5)
     k2_ms = cuda_ms(lambda: ladder_cuda(op, co, t_max, **run), iters=5)
     k2_plain = cuda_ms(lambda: _dr_ladder_compute(op, co, t_max, **run),
                        iters=3)
@@ -901,12 +958,9 @@ def phase_conic_timing(torch, dev, card):
                             outs[4][:, 3],
                             8 * m * n + 2 * m * m + 8 * m * n / PROBE)
     print(f"timing K2 one phase-1 launch B=16 dim-1020 (32 iterations, 4 "
-          f"stages) [{card}]: kernel {k2_ms:.3f} ms, plain version "
+          f"stages) [{card}]: kernel {k2_ms:.3f} ms (the plan's "
+          f"{dr_plan_line(torch, P, co, 'ladder')}), plain version "
           f"{k2_plain:.3f} ms, bound {k2_bound[0]:.4f} ms ({k2_bound[1]})")
-    with limit_shared_memory(0):
-        t = cuda_ms(lambda: ladder_cuda(op, co, t_max, **run), iters=3)
-    print(f"timing K2 one phase-1 launch B=16 dim-1020 [{card}]: {t:.3f} ms "
-          f"spilled (the lane's vectors in global memory)")
     st = conic_phase1_state(torch, P, cones)
     anc = conic_anchor(torch, P, cones, st, 0.0)
     t_max = torch.full((B,), 512, dtype=torch.int32, device=dev)
@@ -972,11 +1026,46 @@ def phase_conic_timing(torch, dev, card):
     return (k2_ms, k2_plain) + k2_bound, (k3_ms, k3_plain) + k3_bound
 
 
+# the cluster sizes K2 and K4 are timed at, each in every residency that
+# fits, and spilled
+DR_CLUSTERS = (4, 6, 8, 16)
+
+
+def dr_form_sweep(torch, dev, card, kernel, run, P, co, what, iters):
+    """Time one launch of K2 (`kernel="ladder"`) or K4 (`"sprint"`),
+    `run(plan)`, at each of DR_CLUSTERS streaming, with A resident where
+    its CTA fits the card, and spilled, with the clusters the card holds
+    at once.  Returns {(cluster, form): ms}."""
+    from abip_tpu_torch.utils.timing import cuda_ms
+
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    out = {}
+    for size in DR_CLUSTERS:
+        for form in ((size, False), (size, True), (size, "spill")):
+            p = dr_form_plan(torch, P, co, form)
+            if p.smem_bytes > limit:
+                continue
+            t = cuda_ms(lambda: run(p), iters=iters)
+            out[form] = t
+            print(f"timing {what} [{card}]: {t:.3f} ms at "
+                  f"{dr_plan_line(torch, P, co, kernel, p)}")
+    return out
+
+
 def phase_conic_profile(torch, dev):
     cones, stacks, _ = conic_batch(8700)
     profile_solve(torch, lambda: solve_conic(torch, cones, stacks, dev),
-                  {"K2": "conic_ladder_kernel",
+                  {"K2": "conic_ladder_cluster_kernel",
                    "K3": "conic_delta_cluster_kernel"}, "one conic solve")
+
+
+def phase_conic_sprint_profile(torch, dev):
+    cones, stacks, _ = conic_batch(8750)
+    profile_solve(torch, lambda: solve_conic_sprint(torch, cones, stacks,
+                                                    dev),
+                  {"K4": "conic_sprint_cluster_kernel",
+                   "K3": "conic_delta_cluster_kernel"},
+                  "one conic phase1=sprint solve")
 
 
 # ---------------------------------------------------------------------------
@@ -1118,11 +1207,12 @@ def conic_sprint_operands(torch, P, u, v, lam, thresh, k0):
         CONIC_KW["rho_y"], 1.0, 1.0, P.a_coef, lam, 1.8, thresh, u, v, k0)
 
 
-def conic_sprint_parity(torch, dev, label, case):
-    """K4 against its plain version: T=64 at thresh=0 from the cold start
-    (k0 = 0: the first iteration takes tau_t = 1; mu = 1), then 64 more
-    from the plain version's state (k0 = 64, mu = 0.2); equal t_done, the
-    stated tolerance, the accuracy ratio; then thresholds that stop lanes
+def conic_sprint_parity(torch, dev, label, case, form=None):
+    """K4 against its plain version, in the form of its launch plan (or in
+    `form`, as `dr_form_plan` takes it): T=64 at thresh=0 from the cold start (k0 = 0: the first
+    iteration takes tau_t = 1; mu = 1), then 64 more from the plain
+    version's state (k0 = 64, mu = 0.2); equal t_done, the stated
+    tolerance, the accuracy ratio; then thresholds that stop lanes
     mid-chunk.  Returns the largest |kernel - plain|."""
     from abip_tpu_torch.cones import cone_operands
     from abip_tpu_torch.ops.conic_dr import (DrSprintOperands,
@@ -1133,6 +1223,8 @@ def conic_sprint_parity(torch, dev, label, case):
     P = conic_prepared(torch, cones, stacks, dev)
     co = cone_operands(cones, dev)
     nb = P.A.shape[0]
+    plan = dr_form_plan(torch, P, co, form)
+    print(f"K4 {label}: {dr_plan_line(torch, P, co, 'sprint', plan)}")
     run = dict(probe=PROBE, woodbury=P.dss.form == "woodbury")
     tm = torch.full((nb,), 64, dtype=torch.int32, device=dev)
     u = conic_cold_state(torch, P, cones)
@@ -1143,7 +1235,7 @@ def conic_sprint_parity(torch, dev, label, case):
             u = torch.cat([y, x, row[:, :1]], 1)
             v = torch.cat([vy, vx, row[:, 1:2]], 1)
         op = conic_sprint_operands(torch, P, u, v, lam, 0.0, k0)
-        ker = dr_sprint_cuda(op, co, tm, **run)
+        ker = dr_sprint_cuda(op, co, tm, plan=plan, **run)
         plain = _dr_sprint_compute(op, co, tm, **run)
         exact = _dr_sprint_compute(DrSprintOperands(*[x.double() for x in op]),
                                    co, tm, **run)
@@ -1165,7 +1257,7 @@ def conic_sprint_parity(torch, dev, label, case):
         dev)
     op = conic_sprint_operands(torch, P, u, u, 1.0, thresh, 0.0)
     tm = torch.full((nb,), 256, dtype=torch.int32, device=dev)
-    tk = dr_sprint_cuda(op, co, tm, **run)[4][:, 3].int().tolist()
+    tk = dr_sprint_cuda(op, co, tm, plan=plan, **run)[4][:, 3].int().tolist()
     tp = _dr_sprint_compute(op, co, tm, **run)[4][:, 3].int().tolist()
     if tp != t_stop:
         raise AssertionError(f"K4 {label}: plain t_done {tp}, planned {t_stop}")
@@ -1411,7 +1503,6 @@ def phase_sprint_kernel_timing(torch, dev, card):
     (32,000 elements, f32 and f64) against their plain versions, with
     bounds.  Returns the K4 and the f32 K8 tuples."""
     from abip_tpu_torch.cones import cone_operands
-    from abip_tpu_torch.device import limit_shared_memory
     from abip_tpu_torch.ops.conic_dr import _dr_sprint_compute, dr_sprint_cuda
     from abip_tpu_torch.ops.prox import _ref_impl, barrier_step_cuda
     from abip_tpu_torch.utils.timing import cuda_ms, queued_ms
@@ -1423,6 +1514,9 @@ def phase_sprint_kernel_timing(torch, dev, card):
     op = conic_sprint_operands(torch, P, u, u, 1.0, 0.0, 0.0)
     tm = torch.full((B,), 512, dtype=torch.int32, device=dev)
     run = dict(probe=PROBE, woodbury=P.dss.form == "woodbury")
+    dr_form_sweep(torch, dev, card, "sprint",
+                  lambda p: dr_sprint_cuda(op, co, tm, plan=p, **run), P, co,
+                  "K4 chunk T=512 B=16 dim-1020", 3)
     ms = cuda_ms(lambda: dr_sprint_cuda(op, co, tm, **run), iters=5)
     plain = cuda_ms(lambda: _dr_sprint_compute(op, co, tm, **run), iters=1)
     outs = dr_sprint_cuda(op, co, tm, **run)
@@ -1432,12 +1526,9 @@ def phase_sprint_kernel_timing(torch, dev, card):
     bms, by = kernel_bound(list(op) + list(co) + [tm], outs, outs[4][:, 3],
                            8 * m * n + 2 * m * m + 4 * m * n / PROBE)
     print(f"timing K4 chunk T=512 B=16 dim-1020 [{card}]: kernel {ms:.3f} ms "
-          f"({ms * 1e3 / 512:.2f} us/iteration), plain version {plain:.3f} "
-          f"ms, bound {bms:.4f} ms ({by})")
-    with limit_shared_memory(0):
-        t = cuda_ms(lambda: dr_sprint_cuda(op, co, tm, **run), iters=3)
-    print(f"timing K4 chunk T=512 B=16 dim-1020 [{card}]: {t:.3f} ms spilled "
-          f"(the lane's vectors in global memory)")
+          f"({ms * 1e3 / 512:.2f} us/iteration; the plan's "
+          f"{dr_plan_line(torch, P, co, 'sprint')}), plain version "
+          f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
     k4 = (ms, plain, bms, by)
     k8 = None
     for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
@@ -1459,8 +1550,9 @@ def phase_sprint_kernel_timing(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 # n = 14,500 (10 SOC(5), 5 RSOC(4), 14,430 nonneg), m = 50: one block per
-# lane of K2 holds 6 m + 4 n + 3 nb floats in shared memory, more than a
-# block's, so K2 spills; the reference runs such a batch through its XLA
+# lane of the first K2 held 6 m + 4 n + 3 nb floats in shared memory, more
+# than a block's (it spilled); the cluster form streams A at C=6, since no
+# CTA holds A's slice; the reference runs such a batch through its XLA
 # versions and solves every lane (JAX package on a CPU, seeds 9300-9301:
 # Solved, 208 and 184 ADMM iterations, within 4e-6 of the known optima).
 REPAIR_SPEC = dict(soc=(5,) * 10, rsoc=(4,) * 5, nonneg=14_430)
@@ -1512,28 +1604,34 @@ def phase_spilled(torch, dev):
 
 def phase_repair(torch, dev):
     """A B=2 conic batch at REPAIR_SPEC solved on the card through the
-    kernels: phase 1 in K2 spilled (its lane exceeds a block's shared
-    memory), the endgame in K3 by its plan; every lane Solved within
-    1e-5 of its known optimum."""
+    kernels: phase 1 in K2 by its plan (A streamed through L2; one block
+    per lane, the first K2's form, exceeded a block's shared memory), the
+    endgame in K3 by its plan; every lane Solved within 1e-5 of its known
+    optimum."""
+    from abip_tpu_torch.cones import cone_operands
     from abip_tpu_torch.device import smem_optin
     from abip_tpu_torch.ops.conic_delta import (conic_delta_cuda,
                                                 conic_delta_launch_plan)
-    from abip_tpu_torch.ops.conic_dr import dr_smem_bytes, ladder_cuda
+    from abip_tpu_torch.ops.conic_dr import ladder_cuda
     from abip_tpu_torch.utils.timing import wall_s
 
     cones, stacks, stars = conic_batch(REPAIR_SEED, count=2, spec=REPAIR_SPEC,
                                        m=REPAIR_M)
     n, nb = cones.dim, len(cones.soc) + len(cones.rsoc)
-    need = dr_smem_bytes(REPAIR_M, n, nb)
-    if need <= smem_optin(dev):
-        raise AssertionError("the repair shape fits K2; pick a larger one")
+    one_block = 4 * (6 * REPAIR_M + 4 * n + 3 * nb)
+    if one_block <= smem_optin(dev):
+        raise AssertionError("the repair shape fits one block; pick a larger "
+                             "one")
+    P = conic_prepared(torch, cones, stacks, dev)
+    plan = dr_plan_line(torch, P, cone_operands(cones, dev), "ladder")
     ladder_cuda.launches = conic_delta_cuda.launches = 0
     sec, res = wall_s(lambda: solve_conic(torch, cones, stacks, dev))
     print(f"repair B=2 conic m={REPAIR_M} n={n}: wall {sec:.3f} s, ADMM "
           f"{res.admm_iters.cpu().numpy().tolist()}, IPM "
           f"{res.ipm_iters.cpu().numpy().tolist()}, K2 launches "
-          f"{ladder_cuda.launches} (spilled: a lane needs {need} B, a block "
-          f"has {smem_optin(dev)}), K3 launches {conic_delta_cuda.launches} "
+          f"{ladder_cuda.launches} at {plan} (one block per lane would need "
+          f"{one_block} B, a block has {smem_optin(dev)}), K3 launches "
+          f"{conic_delta_cuda.launches} "
           f"({conic_delta_launch_plan(REPAIR_M, n, nb)})")
     conic_vs_optima(res, stars, "repair")
     if ladder_cuda.launches <= 0:
@@ -1857,6 +1955,94 @@ def phase_host_profile(torch, dev):
                   "one host LP solve")
 
 
+def kernel_name(mangled):
+    """`name<args>` of a kernel from its mangled name: the length-prefixed
+    identifier ending in "kernel" and its integer and bool template
+    arguments (a kernel's form: 0 resident, 1 streaming, 2 spilled)."""
+    import re
+
+    for m in re.finditer("kernel", mangled):
+        end = m.end()
+        for start in range(end - 6, 0, -1):
+            size = str(end - start)
+            if mangled[start - len(size):start] == size:
+                args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[end:])
+                targs = re.findall(r"L[ib](\d+)E", args.group(1)) if args \
+                    else []
+                return mangled[start:end] + (f"<{', '.join(targs)}>"
+                                             if targs else "")
+    return mangled
+
+
+def ptxas_summary(log):
+    """Each kernel's registers and spills from `nvcc -Xptxas -v`'s log:
+    'name<form>: R registers, S B spill stores, L B spill loads'."""
+    import re
+
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            name, spill = kernel_name(m.group(1)), "no spill line"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            spill = f"{m.group(1)} B spill stores, {m.group(2)} B spill loads"
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return out
+
+
+AB_SNIPPET = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from abip_tpu_torch.cones import cone_operands
+from abip_tpu_torch.ops.conic_dr import dr_sprint_cuda, ladder_cuda
+from abip_tpu_torch.utils.timing import cuda_ms
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+cones, stacks, _ = cs.conic_batch(8600)
+P = cs.conic_prepared(torch, cones, stacks, dev)
+co = cone_operands(cones, dev)
+op2 = cs.cold_ladder_operands(torch, P, cones)
+t2 = torch.full((cs.B,), 2048, dtype=torch.int32, device=dev)
+u = cs.conic_cold_state(torch, P, cones)
+op4 = cs.conic_sprint_operands(torch, P, u, u, 1.0, 0.0, 0.0)
+t4 = torch.full((cs.B,), 512, dtype=torch.int32, device=dev)
+k2 = [cuda_ms(lambda: ladder_cuda(op2, co, t2, probe=cs.PROBE, psi=1.0,
+                                  woodbury=True), iters=5) for _ in range(3)]
+k4 = [cuda_ms(lambda: dr_sprint_cuda(op4, co, t4, probe=cs.PROBE,
+                                     woodbury=True), iters=3)
+      for _ in range(3)]
+print("AB " + json.dumps({"K2": k2, "K4": k4}))
+"""
+
+
+def ab_parent(parent):
+    """K2 (one phase-1 launch) and K4 (one T=512 chunk) at dim-1020 B=16,
+    three times five (three) launches each, in this checkout and in
+    `parent`, each in a process of its own: this, parent, this."""
+    card = card_line()
+    for tree in (ROOT, os.path.abspath(parent), ROOT):
+        proc = subprocess.run([sys.executable, "-c", AB_SNIPPET], cwd=tree,
+                              capture_output=True, text=True, check=False)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+        if proc.returncode or not line:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"A/B run in {tree} failed")
+        times = json.loads(line[0][3:])
+        which = "parent" if tree != ROOT else "change"
+        print(f"A/B {which} ({tree}) [{card}]: K2 ms "
+              f"{[round(t, 3) for t in times['K2']]}, K4 ms "
+              f"{[round(t, 3) for t in times['K4']]}")
+    return 0
+
+
 def main():
     import time
 
@@ -1867,6 +2053,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--ab"]:
+        return ab_parent(sys.argv[2])
     from abip_tpu_torch.ops.build import load_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1888,10 +2076,8 @@ def main():
     print(f"build: {len(SOURCES)} sources side by side in "
           f"{time.perf_counter() - t0:.1f} s")
     for name, lib in built.items():
-        regs = [ln.strip() for ln in lib.log.splitlines()
-                if "registers" in ln or "spill" in ln]
         print(f"build {name}.cu: {lib.build_seconds:.1f} s [{card}] "
-              f"{' | '.join(regs)}")
+              f"{' | '.join(ptxas_summary(lib.log))}")
 
     k5_err = phase("K5 parity", phase_spmv_parity, torch, dev)
     k5_launches = phase("host LP main path", phase_host_lp, torch, dev)
@@ -1923,6 +2109,8 @@ def main():
         conic_sprint_parity(torch, dev, *c) for c in CONIC_CASES))
     k4_launches, _ = phase("conic phase1=sprint main path",
                            phase_conic_sprint_main, torch, dev, card)
+    phase("conic phase1=sprint profile", phase_conic_sprint_profile, torch,
+          dev)
     k8_err, k8_launches = phase("K8 parity", phase_barrier_step, torch, dev)
     k4, k8 = phase("K4/K8 timing", phase_sprint_kernel_timing, torch, dev,
                    card)
@@ -1941,11 +2129,11 @@ def main():
     print(json.dumps({"kernels": [
         entry("delta_cluster_kernel", "admm_delta.cu",
               "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1),
-        entry("conic_ladder_kernel", "conic_ladder.cu",
+        entry("conic_ladder_cluster_kernel", "conic_ladder.cu",
               "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2),
         entry("conic_delta_cluster_kernel", "conic_delta.cu",
               "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3),
-        entry("conic_sprint_kernel", "conic_sprint.cu",
+        entry("conic_sprint_cluster_kernel", "conic_sprint.cu",
               "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4),
         entry("csr_spmv_kernel", "bcsr_spmv.cu",
               "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,

@@ -10,16 +10,16 @@ K1 (LP delta chunk), K6 and K7 (LP sprints), each one thread-block
 cluster per lane: anchors and states from
 the port's own f64 setup of numpy-seeded smoke LPs, advanced by absolute
 f64 ADMM steps (`chip_smoke.mid_solve_state`).  K2 (conic ladder), K3
-(conic delta chunk) and K4 (conic sprint): the cases and tolerances of
-`chip_smoke.ladder_parity`, `chip_smoke.delta_parity` and
-`chip_smoke.conic_sprint_parity`, on instances of the JAX-free
-`chip_smoke.randcone`; K3 also one thread-block cluster per lane.  K8
-(barrier step): `chip_smoke.phase_barrier_step`.  The shape repair: each
-kernel's spilled form (its layout in a global workspace, for shapes no
-shared memory holds) against the plain version, batches solved with
-every kernel spilled (`device.limit_shared_memory`), and a batch one
-block per lane of K2 cannot hold in shared memory solved through the
-kernels (`chip_smoke.phase_repair`).
+(conic delta chunk) and K4 (conic sprint), each one thread-block cluster
+per lane too: the cases and tolerances of `chip_smoke.ladder_parity`,
+`chip_smoke.delta_parity` and `chip_smoke.conic_sprint_parity`, on
+instances of the JAX-free `chip_smoke.randcone`, in every form their
+plans take.  K8 (barrier step): `chip_smoke.phase_barrier_step`.  The
+shape repair: each kernel's spilled form (its layout in a global
+workspace, for shapes no shared memory holds) against the plain version,
+batches solved with every kernel spilled (`device.limit_shared_memory`),
+and a batch whose lane one block of the first K2 could not hold in
+shared memory solved through the kernels (`chip_smoke.phase_repair`).
 """
 import functools
 
@@ -137,6 +137,36 @@ def test_ladder_kernel_matches_plain_on_card(cuda_device, label, case):
     chip_smoke.ladder_parity(torch, cuda_device, label, case)
 
 
+# K2's and K4's forms: A resident at C=8 (the plan at dim-1020) and C=7,
+# streamed at C=6 and C=16, spilled at C=16; the smoke's two conic cases,
+# whose blocks straddle CTAs in every form
+DR_FORMS = ((8, True), (7, True), (6, False), (16, False), (16, "spill"))
+DR_FORM_IDS = ["C8-A", "C7-A", "C6-stream", "C16-stream", "C16-spill"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["K2", "K4"])
+@pytest.mark.parametrize("form", DR_FORMS, ids=DR_FORM_IDS)
+@pytest.mark.parametrize("label,case", chip_smoke.CONIC_CASES,
+                         ids=CASE_IDS[:2])
+def test_dr_kernels_in_every_form(cuda_device, label, case, form, kernel):
+    """K2 (phase 1 from the cold start: equal t_done, stages and mu) and
+    K4 (T=64 from the cold start and at k0 = 64, then lanes stopped
+    mid-chunk) in each form, against their plain versions at the stated
+    tolerance and at most 3x the plain version's distance from an f64
+    run."""
+    from abip_tpu_torch.cones import ConeSpec, cone_operands
+
+    spec = ConeSpec(**(case.get("spec") or chip_smoke.CONIC_SPEC))
+    co = cone_operands(spec)
+    spans, _ = conic_delta.cluster_block_spans(co.start, co.length, spec.dim,
+                                               form[0])
+    assert any(lo != hi for lo, hi in spans)
+    check = chip_smoke.ladder_parity if kernel == "K2" else \
+        chip_smoke.conic_sprint_parity
+    check(torch, cuda_device, f"{label} C={form[0]}", case, form=form)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,case", CONIC_CASES, ids=CASE_IDS)
 def test_conic_delta_kernel_matches_plain_on_card(cuda_device, label, case):
@@ -178,19 +208,23 @@ def test_conic_delta_kernel_forms_on_straddling_blocks(cuda_device, form):
 
 @pytest.mark.cuda
 def test_repair_solves_what_the_kernels_refuse(cuda_device):
-    """A conic batch whose lane one block of K2 cannot hold in shared
-    memory (`chip_smoke.REPAIR_SPEC`, n=14,500) solved on the card:
-    phase 1 runs K2 spilled; every lane ends as the CPU (plain) solve
-    ends, Solved, with objectives within 1e-5 relative."""
+    """A conic batch whose lane one block of the first K2 could not hold
+    in shared memory (`chip_smoke.REPAIR_SPEC`, n=14,500; 6 m + 4 n + 3 nb
+    floats) solved on the card: phase 1 runs K2 in the form of its plan,
+    A streamed through L2 at C=6 (no CTA holds A's slice of 14,500
+    columns); every lane ends as the CPU (plain) solve ends, Solved, with
+    objectives within 1e-5 relative."""
     from abip_tpu_torch.device import smem_optin
-    from abip_tpu_torch.ops.conic_dr import dr_smem_bytes, ladder_cuda
+    from abip_tpu_torch.ops.conic_dr import dr_launch_plan, ladder_cuda
 
     cones, stacks, stars = chip_smoke.conic_batch(
         chip_smoke.REPAIR_SEED, count=2, spec=chip_smoke.REPAIR_SPEC,
         m=chip_smoke.REPAIR_M)
     nb = len(cones.soc) + len(cones.rsoc)
-    assert dr_smem_bytes(chip_smoke.REPAIR_M, cones.dim, nb) > smem_optin(
-        cuda_device)
+    m, n = chip_smoke.REPAIR_M, cones.dim
+    assert 4 * (6 * m + 4 * n + 3 * nb) > smem_optin(cuda_device)
+    plan = dr_launch_plan(m, n, nb, smem_optin(cuda_device))
+    assert (plan.cluster, plan.resident, plan.spill) == (6, False, False)
     ladder_cuda.launches = 0
     card = chip_smoke.solve_conic(torch, cones, stacks, cuda_device)
     assert ladder_cuda.launches > 0
@@ -202,10 +236,11 @@ def test_repair_solves_what_the_kernels_refuse(cuda_device):
 
 @pytest.mark.cuda
 def test_conic_kernels_refuse_shapes_beyond_shared_memory(cuda_device):
-    """15,000 two-element SOC blocks (n=30,000) need more shared memory
-    per block (per CTA of K3) than the card has: K3 refuses a
-    shared-memory plan of that shape; by their own plans K2 and K3
-    spill and run."""
+    """Shapes beyond a CTA's shared memory: 15,000 two-element SOC blocks
+    (n=30,000) exceed K3's streaming CTA, and a tall m=12,000 exceeds
+    K2's (its replicated m-side state); each wrapper refuses a
+    shared-memory plan of such a shape, and by its own plan spills and
+    runs (K2 holds the 15,000 blocks with m=1 in a resident C=8 CTA)."""
     from abip_tpu_torch.cones import ConeSpec, cone_operands
 
     spec = ConeSpec(soc=(2,) * 15_000)
@@ -213,21 +248,34 @@ def test_conic_kernels_refuse_shapes_beyond_shared_memory(cuda_device):
     B, m, n = 1, 1, spec.dim
     f32 = torch.float32
 
-    def zeros(names, m_names, extra):
+    def zeros(names, m_names, extra, m=m, n=n):
         out = {k: torch.zeros((B, m if k in m_names else n), dtype=f32,
                               device=cuda_device) for k in names}
         out.update({k: torch.zeros(shape, dtype=f32, device=cuda_device)
                     for k, shape in extra.items()})
         return out
 
+    def ladder_ops(m, n):
+        return conic_dr.LadderOperands(**zeros(
+            conic_dr.LadderOperands._fields, conic_dr._LADDER_M,
+            dict(scal=(B, conic_dr.N_LADDER_SCAL), A=(B, m, n),
+                 Minv=(B, m, m)), m, n))
+
     t_max = torch.ones((B,), dtype=torch.int32, device=cuda_device)
-    lad = conic_dr.LadderOperands(**zeros(
-        conic_dr.LadderOperands._fields, conic_dr._LADDER_M,
-        dict(scal=(B, conic_dr.N_LADDER_SCAL), A=(B, m, n), Minv=(B, m, m))))
-    assert conic_dr.dr_smem_bytes(m, n, 15_000) > delta.SMEM_OPTIN
-    out = conic_dr.ladder_cuda(lad, co, t_max, probe=8, psi=1.0,
-                               woodbury=True)
+    run = dict(probe=8, psi=1.0, woodbury=True)
+    assert conic_dr.dr_launch_plan(m, n, 15_000).resident
+    out = conic_dr.ladder_cuda(ladder_ops(m, n), co, t_max, **run)
     assert out[4][:, 3].tolist() == [8.0]
+    tall, co_nn = 12_000, cone_operands(ConeSpec(nonneg=10), cuda_device)
+    lad = ladder_ops(tall, 10)
+    shared = delta.DeltaPlan(16, False, conic_dr.dr_smem_bytes(
+        tall, 10, 0, 16, False))
+    with pytest.raises(ValueError, match="shared memory"):
+        conic_dr.ladder_cuda(lad, co_nn, t_max, plan=shared, **run)
+    assert conic_dr.dr_launch_plan(tall, 10, 0).spill
+    out = conic_dr.ladder_cuda(lad, co_nn, t_max, **run)
+    assert out[4][:, 3].tolist() == [8.0]
+    del lad
     anc = conic_delta.ConicDeltaAnchor(**zeros(
         conic_delta.ConicDeltaAnchor._fields, conic_delta._DELTA_M,
         dict(scal=(B, conic_delta.N_DELTA_SCAL), A=(B, m, n),

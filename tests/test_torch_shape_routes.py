@@ -3,14 +3,14 @@
 Each chunk entry (`run_delta_chunk`: K1; the LP sprints' `_run`: K6,
 K7; `run_conic_delta_chunk`: K3; `fused_dr_ladder` and
 `fused_dr_sprint_stop`: K2, K4) launches its kernel on every CUDA
-tensor.  The form of the launch follows the shapes and the card's
-`shared_memory_per_block_optin`: resident, streaming through L2, or,
-where no shared memory holds a CTA (a block, for K2 and K4), spilled:
-the same layout in a global workspace.  Where the reference's
+tensor, one thread-block cluster per lane.  The form of the launch
+follows the shapes and the card's `shared_memory_per_block_optin`:
+resident, streaming through L2, or, where no shared memory holds a CTA,
+spilled: the same layout in a global workspace.  Where the reference's
 `pallas_fits` gate sends a shape to its XLA version because its kernel
-does not fit VMEM, the port's kernels spill or stream; the converse does
-not hold (the card's kernels stream through L2 shapes a TPU core's VMEM
-does not hold).
+does not fit VMEM, the port's kernels still run it, in whatever form
+their plan gives; the converse does not hold (the card's kernels stream
+through L2 shapes a TPU core's VMEM does not hold).
 """
 import numpy as np
 import pytest
@@ -147,47 +147,121 @@ def test_sprint_launch_plan_on_a_smaller_card(spare, resident):
 
 
 def test_dr_predicate_is_the_one_block_kernels_shared_memory():
-    """K2 and K4 keep one block per lane: 6 m + 4 n + 3 nb floats and the
-    32 warps' scratch, in shared memory where that fits; 15,000 SOC(2)
-    blocks do not fit an H100, and spill."""
-    assert conic_dr.dr_smem_bytes(340, 1020, 3) == 4 * (
-        6 * 340 + 4 * 1020 + 9 + 192)
-    assert conic_dr.dr_smem_bytes(340, 1020, 3) <= H100
-    assert conic_dr.dr_smem_bytes(1, 30_000, 15_000) > H100
-    assert conic_dr.dr_smem_bytes(340, 1020, 3) > 20_000
+    """K2 and K4 run a cluster per lane (`dr_smem_bytes` is a
+    CTA's shared memory, `conic_cluster.cuh:dr_smem_floats`): at dim-1020
+    C=8 holds A's slice in 204 KB; 15,000 SOC(2) blocks, which one block
+    per lane could not hold (6 m + 4 n + 3 nb floats), fit a CTA of C=8
+    with A's slice (3,752 columns); only a tall m, whose replicated
+    m-side state alone exceeds a CTA, spills."""
+    nc, mp = 128, 340
+    assert conic_dr.dr_smem_bytes(340, 1020, 3, 8, True) == 4 * (
+        12 * 8 + 2 * 28 + 12 + 5 * mp + 4 * nc + 12 + 384
+        + 8 * mp + 340 * (nc + 4) + 5 * nc)   # nc = 0 mod 8: stride nc + 4
+    assert conic_dr.dr_smem_bytes(340, 1020, 3, 8, True) <= H100
+    assert 4 * (6 * 1 + 4 * 30_000 + 3 * 15_000) > H100
+    assert conic_dr.dr_launch_plan(1, 30_000, 15_000) == delta.DeltaPlan(
+        8, True, conic_dr.dr_smem_bytes(1, 30_000, 15_000, 8, True))
+    assert conic_dr.dr_launch_plan(12_000, 10, 0).spill
+
+
+DR = {  # (m, n, nb, woodbury): (cluster, form)
+    "dim-1020": ((340, 1020, 3, True), (8, "resident")),
+    "small primal": ((12, 19, 2, False), (8, "resident")),
+    "wide n=1500": ((400, 1500, 3, True), (6, "streaming")),
+    "repair n=14500": ((50, 14_500, 15, True), (6, "streaming")),
+    "15000 blocks": ((1, 30_000, 15_000, True), (8, "resident")),
+    "tall m=12000": ((12_000, 10, 0, True), (16, "spilled")),
+}
+
+
+@pytest.mark.parametrize("label", sorted(DR))
+def test_dr_launch_plan(label):
+    """K2's and K4's plan is the first of DR_PLANS whose CTA fits, else
+    C=16 spilled; every plan's shared memory is the kernel's."""
+    (m, n, nb, wb), (cluster, form) = DR[label]
+    plan = conic_dr.dr_launch_plan(m, n, nb, H100, wb)
+    got = "spilled" if plan.spill else ("resident" if plan.resident
+                                        else "streaming")
+    assert (plan.cluster, got) == (cluster, form)
+    if not plan.spill:
+        assert plan.smem_bytes == conic_dr.dr_smem_bytes(
+            m, n, nb, plan.cluster, plan.resident, wb) <= H100
+        first = next(p for p in conic_dr.DR_PLANS
+                     if conic_dr.dr_smem_bytes(m, n, nb, *p, wb) <= H100)
+        assert (plan.cluster, plan.resident) == first
+    else:
+        assert plan.smem_bytes == 0 and not plan.resident
+
+
+def test_dr_shared_memory_by_form():
+    """At dim-1020 C=7 and C=8 hold A's slice (227 and 204 KB), C=6 does
+    not; C=16 holds it in 115 KB."""
+    m, n, nb = 340, 1020, 3
+    assert conic_dr.dr_smem_bytes(m, n, nb, 7, True) <= H100
+    assert conic_dr.dr_smem_bytes(m, n, nb, 8, True) <= H100
+    assert conic_dr.dr_smem_bytes(m, n, nb, 6, True) > H100
+    assert conic_dr.dr_smem_bytes(m, n, nb, 16, True) < 120_000
+
+
+def test_dr_streaming_takes_every_shape_the_one_block_kernel_took():
+    """The last plan (C=16, streaming) needs less than one block per lane
+    needed (6 m + 4 n + 3 nb floats and 32 warps' scratch of 6), so no
+    shape the one-block K2 and K4 held in shared memory spills."""
+    rng = np.random.default_rng(5)
+    for _ in range(200):
+        m, n = int(rng.integers(1, 9000)), int(rng.integers(1, 14000))
+        nb = int(rng.integers(0, n // 2 + 1))
+        for wb in (True, False):
+            if 4 * (6 * m + 4 * n + 3 * nb + 32 * 6) <= H100:
+                assert not conic_dr.dr_launch_plan(m, n, nb, H100, wb).spill
+
+
+def test_dr_launch_plan_on_a_smaller_card():
+    """With 100 KB a block, dim-1020 streams at C=6; with less than the
+    streaming form needs, the plan spills at C=16, with no shared
+    memory."""
+    plan = conic_dr.dr_launch_plan(340, 1020, 3, 100_000)
+    assert (plan.cluster, plan.resident, plan.spill) == (6, False, False)
+    assert conic_dr.dr_launch_plan(340, 1020, 3, 2_000) == delta.DeltaPlan(
+        16, False, 0, spill=True)
 
 
 # -- where the port spills, the reference takes its XLA route ----------------
 
-@pytest.mark.parametrize("entry,m,n,nb", [
-    ("delta", 15_000, 1, 0), ("delta", 2, 500_000, 0),
-    ("sprint", 15_000, 1, 0), ("dr", 1, 30_000, 15_000),
-    ("dr", 10_000, 10, 0), ("conic_delta", 20_000, 30, 0),
-    ("conic_delta", 1, 30_000, 15_000)],
+@pytest.mark.parametrize("entry,m,n,nb,form", [
+    ("delta", 15_000, 1, 0, "spilled"), ("delta", 2, 500_000, 0, "spilled"),
+    ("sprint", 15_000, 1, 0, "spilled"), ("dr", 1, 30_000, 15_000, "resident"),
+    ("dr", 10_000, 10, 0, "streaming"), ("dr", 12_000, 10, 0, "spilled"),
+    ("conic_delta", 20_000, 30, 0, "spilled"),
+    ("conic_delta", 1, 30_000, 15_000, "spilled")],
     ids=["K1-tall", "K1-wide", "K6-tall", "K2K4-blocks", "K2K4-tall",
-         "K3-tall", "K3-blocks"])
-def test_refused_shapes_take_the_plain_route_as_the_reference_does(
-        entry, m, n, nb):
-    """Shapes no shared-memory form of the port's kernel holds: the
-    kernel spills (its launch plan says so), where the reference runs
-    its plain XLA version."""
-    port = {"delta": lambda: not delta.delta_launch_plan(m, n, H100).spill,
-            "sprint": lambda: not sp.sprint_launch_plan(m, n, H100).spill,
-            "dr": lambda: conic_dr.dr_smem_bytes(m, n, nb) <= H100,
-            "conic_delta": lambda: not cd.conic_delta_launch_plan(
-                m, n, nb, H100).spill}[entry]
+         "K2K4-taller", "K3-tall", "K3-blocks"])
+def test_shapes_the_reference_sends_to_xla_run_in_the_kernel_on_the_card(
+        entry, m, n, nb, form):
+    """Shapes the reference's gate refuses (its kernel does not fit VMEM,
+    so it runs its plain XLA version): the port's kernel runs them, in
+    the form its launch plan gives (K2/K4 hold 15,000 SOC(2) blocks with
+    m=1 in a cluster's shared memory; the others stream through L2 or
+    spill)."""
+    plan = {"delta": lambda: delta.delta_launch_plan(m, n, H100),
+            "sprint": lambda: sp.sprint_launch_plan(m, n, H100),
+            "dr": lambda: conic_dr.dr_launch_plan(m, n, nb, H100),
+            "conic_delta": lambda: cd.conic_delta_launch_plan(
+                m, n, nb, H100)}[entry]()
     ref = {"delta": lambda: _ref_delta(m, n),
            "sprint": lambda: _ref_sprint(m, n),
            "dr": lambda: _ref_conic(m, n, nb, True, 12),
            "conic_delta": lambda: _ref_conic(m, n, nb, True, 16)}[entry]
-    assert not port() and not ref()
+    got = "spilled" if plan.spill else ("resident" if plan.resident
+                                        else "streaming")
+    assert got == form and not ref()
 
 
 @pytest.mark.parametrize("entry", ["delta", "sprint", "dr", "conic_delta"])
 def test_smoke_shapes_take_the_kernel_on_both(entry):
     port = {"delta": delta.delta_launch_plan(50, 2000, H100).resident,
             "sprint": sp.sprint_launch_plan(50, 2000, H100).resident,
-            "dr": conic_dr.dr_smem_bytes(340, 1020, 3) <= H100,
+            "dr": conic_dr.dr_launch_plan(340, 1020, 3, H100).resident,
             "conic_delta": cd.conic_delta_launch_plan(
                 340, 1020, 3, H100).resident}[entry]
     ref = {"delta": _ref_delta(50, 2000), "sprint": _ref_sprint(50, 2000),
