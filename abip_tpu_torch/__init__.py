@@ -1,8 +1,11 @@
 """ABIP in PyTorch: the LP and conic solvers on CUDA.
 
 A port of `abip_tpu` to PyTorch: the host LP driver (`solve_lp`, one LP
-on a dense or scipy sparse A), the batched LP solver with its delta,
-steps, sprint and two-phase sprint2 engines (`solve_lp_batch`), and the
+on a dense or scipy sparse A), the host conic driver (`solve_qcp`,
+`ConicWorkspace`: one SOCP or QP), the readers of MPS, CBF and SeDuMi
+files (`io`, and `python -m abip_tpu_torch FILE`), the batched LP
+solver with its delta, steps, sprint and two-phase sprint2 engines
+(`solve_lp_batch`), and the
 two-phase batched conic path (`solve_qcp_batch`: barrier ladder or
 one-stage sprints, then the anchored-delta endgame).  Their hot loops
 run hand-written CUDA C++ kernels for Hopper (`csrc/bcsr_spmv.cu`,
@@ -21,7 +24,11 @@ Quick start::
     sol = abip_tpu_torch.solve_lp(sp.csr_matrix(A), b, c, eps=1e-6,
                                   device="cpu")
 
-    from abip_tpu_torch import ConeSpec, solve_lp_batch, solve_qcp_batch
+    from abip_tpu_torch import ConeSpec, solve_qcp
+    sol = solve_qcp(A, b, c, ConeSpec(soc=(5,), nonneg=10), eps=1e-6)
+    sol = solve_qcp(A, b, c, ConeSpec.lp(n), Q=Q, eps=1e-6, device="cpu")
+
+    from abip_tpu_torch import solve_lp_batch, solve_qcp_batch
     res = solve_lp_batch(As, bs, cs, eps=1e-6, engine="delta",
                          precision="mixed", qres_period=1536,
                          avg_period=20)
@@ -34,12 +41,14 @@ from .settings import Settings, Status
 from .cones import ConeSpec
 from .dispatch import solve
 from .lp import LPSolution, LPWorkspace, solve_lp
+from .qcp import ConicSolution, ConicWorkspace, conic_defaults, solve_qcp
 from .problem import LinearOperator
 from .parallel.batched import solve_lp_batch
 from .parallel.batched_qcp import solve_qcp_batch
 
 __version__ = "0.3.0"
 
-__all__ = ["ConeSpec", "LinearOperator", "LPSolution", "LPWorkspace",
-           "Settings", "Status", "solve", "solve_lp", "solve_lp_batch",
-           "solve_qcp_batch", "__version__"]
+__all__ = ["ConeSpec", "ConicSolution", "ConicWorkspace", "LinearOperator",
+           "LPSolution", "LPWorkspace", "Settings", "Status",
+           "conic_defaults", "solve", "solve_lp", "solve_lp_batch",
+           "solve_qcp", "solve_qcp_batch", "__version__"]

@@ -134,6 +134,48 @@ class ConeLayout:
         x[(self.kind == _FREE) | (self.kind == _ZERO)] = 0.0
         return torch.as_tensor(x, dtype=dtype, device=device)
 
+    def interiorize(self, x: np.ndarray, floor: float,
+                    dual: bool = False) -> np.ndarray:
+        """Project a caller-provided point safely into the cone interior
+        (host-side, warm-start path; a copy of
+        `abip_tpu/cones.py:144-184`).
+
+        The reference has no conic warm start (its `ABIP(init)`/`ABIP(solve)`
+        split, `source/abip.c:1271-1311`, reuses the factorization but
+        always cold-starts); this is the conic analogue of the LP driver's
+        floored warm start.  `dual=True` maps through K*: the dual of the
+        free cone is {0} and of the zero cone is free (self-dual otherwise).
+        """
+        x = np.array(x, dtype=np.float64, copy=True)
+        kind = self.kind
+        nn = kind == _NONNEG
+        x[nn] = np.maximum(x[nn], floor)
+        if dual:
+            x[kind == _FREE] = 0.0
+        else:
+            x[kind == _ZERO] = 0.0
+        if self.has_blocks:
+            seg = self.seg
+            h1 = (self.head == 1)
+            h2 = (self.head == 2)
+            body = ((kind == _SOC) | (kind == _RSOC)) & ~h1 & ~h2
+            nb = self.num_blocks
+            bsq = np.zeros(nb)
+            np.add.at(bsq, seg[body], x[body] ** 2)
+            # SOC: head >= ||body|| + floor
+            soc_h = h1 & (kind == _SOC)
+            x[soc_h] = np.maximum(x[soc_h],
+                                  np.sqrt(bsq[seg[soc_h]]) + floor)
+            # RSOC: t1 >= floor, then t2 >= ||body||^2/(2 t1) + floor
+            r1 = h1 & (kind == _RSOC)
+            r2 = h2 & (kind == _RSOC)
+            x[r1] = np.maximum(x[r1], floor)
+            t1 = np.zeros(nb)
+            t1[seg[r1]] = x[r1]
+            need = bsq[seg[r2]] / np.maximum(2.0 * t1[seg[r2]], _TINY) + floor
+            x[r2] = np.maximum(x[r2], need)
+        return x
+
     def segment_mean_tie(self, e: torch.Tensor) -> torch.Tensor:
         """Replace entries within each soc/rsoc block by the block mean
         (`source/qcp_config.c:194-212`); `e` is `(B, n)`."""
@@ -368,20 +410,26 @@ def _rsoc_blocks(t, lam_e, co: ConeOperands):
 
 
 def cone_barrier_prox(t: torch.Tensor, lam_e: torch.Tensor,
-                      layout: ConeLayout) -> torch.Tensor:
+                      layout: ConeLayout, co: ConeOperands = None
+                      ) -> torch.Tensor:
     """Full cone-tail barrier prox (`solve_barrier_subproblem`,
     `source/abip.c:326-413`) for all cone classes at once.
 
     t: `(B, n)`; lam_e: per-element lambda = mu/(beta*rho_i), `(B, n)`
-    or broadcastable to it.
+    or broadcastable to it.  `co` is the layout's `ConeOperands` on t's
+    device: a caller that applies the prox on every iteration builds it
+    once and passes it, so that no call copies the layout to the device;
+    without it the call builds its own.
     """
     lam_e = torch.broadcast_to(lam_e, t.shape)
-    kind = torch.as_tensor(layout.kind, device=t.device)
-    out = torch.where(kind == _NONNEG, _nonneg_prox(t, lam_e), t)  # free: identity
-    out = torch.where(kind == _ZERO, torch.zeros_like(out), out)
-    co = cone_operands(layout.spec, t.device)
+    if co is None:
+        co = cone_operands(layout.spec, t.device)
+    code = co.code
+    out = torch.where(code == E_NN, _nonneg_prox(t, lam_e), t)  # free: identity
+    out = torch.where(code == E_ZERO, torch.zeros_like(out), out)
     if layout.has_soc:
-        out = torch.where(kind == _SOC, _soc_blocks(t, lam_e, co), out)
+        out = torch.where((code == E_SOC_H) | (code == E_SOC_B),
+                          _soc_blocks(t, lam_e, co), out)
     if layout.has_rsoc:
-        out = torch.where(kind == _RSOC, _rsoc_blocks(t, lam_e, co), out)
+        out = torch.where(code >= E_RSOC_H1, _rsoc_blocks(t, lam_e, co), out)
     return out

@@ -1,19 +1,20 @@
 """Conic residuals, stopping codes and the barrier schedule, batched.
 
-Port of `abip_tpu/conic_ops.py:20-216` (the parts the sprint2 path
-runs): the inner HSD-operator criterion, the unscaled residuals with
-the infeasibility/unboundedness certificates, `has_converged` and the
-device `adjust_barrier`.  Every function takes `(B, ...)` tensors, lane
-axis first, and returns `(B,)` tensors; `matvec`/`rmatvec`/`Q_times`
-apply each lane's operator to a `(B, k)` stack.  The DR step math of the
-steps engine (`projection`, `barrier_and_dual`) is not ported yet
-(ROADMAP.md queue 1).
+Port of `abip_tpu/conic_ops.py`: the DR step (`projection`,
+`barrier_and_dual`), the inner HSD-operator criterion, the unscaled
+residuals with the infeasibility/unboundedness certificates,
+`has_converged` and the device `adjust_barrier`.  Every function takes
+`(B, ...)` tensors, lane axis first, and returns `(B, ...)` tensors;
+`matvec`/`rmatvec`/`Q_times` apply each lane's operator to a `(B, k)`
+stack.  The host conic driver (`qcp.py`) runs them at B=1.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from .cones import ConeLayout, cone_barrier_prox
 
 EPS_TOL = 1e-18
 
@@ -48,6 +49,63 @@ class ConicResiduals(NamedTuple):
         nan = torch.full((B,), float("nan"), dtype=dtype, device=device)
         return ConicResiduals(big, big, big, big, big, nan, nan, nan, nan,
                               one, one, big, big)
+
+
+def _per_lane(x, like):
+    """A host float, or a `(B,)` tensor as a column that broadcasts over
+    `like`'s `(B, k)` rows."""
+    return x[:, None] if isinstance(x, torch.Tensor) and x.dim() == 1 else x
+
+
+def projection(u, v, solve_fn, rho, r_vec, a_coef, Q_times, m, n, k,
+               err_ratio=None):
+    """DR projection with quadratic-formula tau (`source/abip.c:186-254`,
+    `abip_tpu/conic_ops.py:44-69`).
+
+    solve_fn(w_y, w_x, k, warm[, err_ratio]) solves the block system
+    [[R_y, A],[-A', Q+R_x]] z = w for `(B, m)`, `(B, n)` rhs and returns
+    (z_y, z_x, iterations).  rho `(l,)`, r_vec `(m+n,)` or `(B, m+n)`,
+    a_coef a float or `(B,)`; k, the global iteration count, a host int
+    or a `(B,)` tensor (tau_t = 1 where it is 0).  Returns (u_t, its)."""
+    l = m + n + 1
+    rho_head = rho[..., :m + n]
+    w_vec = rho_head * (u[:, :m + n] + v[:, :m + n])
+    eta = rho[..., l - 1] * (u[:, l - 1] + v[:, l - 1])
+    args = (w_vec[:, :m], w_vec[:, m:], k, u[:, m:m + n])
+    if err_ratio is not None:
+        args += (err_ratio,)
+    z_y, z_x, its = solve_fn(*args)
+    p = torch.cat([z_y, z_x], dim=1)
+    b_coef = (_dot(r_vec, w_vec) - 2.0 * _dot(r_vec, rho_head * p) - eta)
+    c_coef = -_dot(z_x, Q_times(z_x))
+    disc = torch.clamp(b_coef * b_coef - 4.0 * a_coef * c_coef, min=0.0)
+    tau_t = (-b_coef + torch.sqrt(disc)) / (2.0 * a_coef)
+    if isinstance(k, torch.Tensor):
+        tau_t = torch.where(k > 0, tau_t, torch.ones_like(tau_t))
+    elif k <= 0:
+        tau_t = torch.ones_like(tau_t)
+    u_t = torch.cat([p - tau_t[:, None] * r_vec, tau_t[:, None]], dim=1)
+    return u_t, its
+
+
+def barrier_and_dual(u, v, u_t, lam, rho_tail, layout: ConeLayout, alpha,
+                     m, n, co=None):
+    """`solve_barrier_subproblem` + `update_dual_vars`
+    (`source/abip.c:314-413`, `abip_tpu/conic_ops.py:72-85`): DR with
+    over-relaxation.  lam = mu/beta, a float or `(B,)`; rho_tail `(n+1,)`;
+    `co` the layout's `ConeOperands` on the device (see
+    `cones.cone_barrier_prox`)."""
+    l = m + n + 1
+    rel_ut = alpha * u_t + (1.0 - alpha) * u
+    t = rel_ut - v
+    head = t[:, :m]
+    lam_tail = _per_lane(lam, t) / rho_tail  # x block + tau
+    tail = cone_barrier_prox(t[:, m:m + n], lam_tail[..., :n], layout, co)
+    tau_in = t[:, l - 1]
+    tau = 0.5 * (tau_in + torch.sqrt(tau_in * tau_in + 4.0 * lam_tail[..., n]))
+    u_new = torch.cat([head, tail, tau[:, None]], dim=1)
+    v_new = v + u_new - rel_ut
+    return u_new, v_new
 
 
 def inner_conv_check(u, v_origin, matvec, rmatvec, Q_times, b, c, m, n):

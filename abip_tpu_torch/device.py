@@ -47,3 +47,15 @@ def limit_shared_memory(nbytes):
         yield
     finally:
         _SMEM_CAP[0] = old
+
+
+@contextlib.contextmanager
+def ieee_f32():
+    """Keep float32 matrix products out of TF32 for the duration; the
+    caller's setting is restored on exit."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -15,7 +15,8 @@ through the normal equations (`indirect.c:205-220` of the reference):
   * cg    -- matrix-free Jacobi-preconditioned conjugate gradients with
              the reference's decaying tolerance schedule.
 
-`schur.py` holds the conic path's Schur-complement solver.
+`schur.py` holds the conic drivers' Schur-complement solvers (dense,
+low-rank Woodbury, PCG).
 """
 from .dense import DenseNormalSolver
 from .cg import CGSolver

@@ -21,7 +21,6 @@ kernel K5 (`csrc/bcsr_spmv.cu`).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
 from typing import NamedTuple, Optional
@@ -30,7 +29,7 @@ import numpy as np
 import torch
 
 from . import hsd, schedules
-from .device import resolve_device
+from .device import ieee_f32 as _ieee_f32, resolve_device
 from .hsd import LPResiduals as Residuals
 from .linsys.cg import cg_tolerance, pcg
 from .linsys.dense import cho_solve
@@ -335,17 +334,6 @@ def _lp_dense_setup_shared(A, b, c, *, stgs):
         c=c_s, pr_scale=pr_scale, dr_scale=dr_scale, obj_scale=obj_scale,
         nm_b=nm_b, nm_c=nm_c)
     return scal, sc_b, sc_c, _with_g(ops, stgs), nm_b, nm_c
-
-
-@contextlib.contextmanager
-def _ieee_f32():
-    """Keep float32 matrix products out of TF32 for the duration."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _floats(r: Residuals) -> dict:

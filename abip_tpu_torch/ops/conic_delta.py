@@ -708,13 +708,16 @@ conic_delta_cuda.launches = 0
 
 def conic_delta_anchor(A64, solve_fn, Qd64, ry64, rx64, b64, c64, a_coef,
                        rho_y, rho_x, rho_tau, lam, alpha, thresh, u, v,
-                       q_init, layout, A32, Minv32, Hinv32
+                       q_init, layout, A32, Minv32, Hinv32, co=None
                        ) -> ConicDeltaAnchor:
     """Build the f32 operand set of one conic delta chunk from the f64
     entry state of every lane.  `solve_fn(w_y, w_x)` is the f64-quality
-    DR linear solve (`DenseSchurSolver.solve`); the anchor images
+    DR linear solve (`DenseSchurSolver.solve`; a third output, its
+    iteration count, is dropped); the anchor images
     replicate one absolute DR iteration (`source/abip.c:186-314`) at the
-    exact entry state.  a_coef, lam, thresh, q_init: floats or `(B,)`.
+    exact entry state.  a_coef, lam, thresh, q_init: floats or `(B,)`;
+    `co`, the layout's `ConeOperands` on the device, where the caller
+    holds it.
 
     NOTE: the first-ever DR iteration's `tau_t := 1` special case is NOT
     represented: this engine is an endgame, entered at k > 0."""
@@ -729,7 +732,7 @@ def conic_delta_anchor(A64, solve_fn, Qd64, ry64, rx64, b64, c64, a_coef,
     wy0 = rho_y * (y0 + vy0)
     wx0 = rho_x * (x0 + vx0)
     eta0 = rho_tau * (tau0 + kap0)
-    zy0, zx0 = solve_fn(wy0, wx0)
+    zy0, zx0 = solve_fn(wy0, wx0)[:2]
     Qd_ = torch.zeros_like(x0) if Qd64 is None else Qd64
     dot = lambda a, b: (a * b).sum(-1)  # noqa: E731
     b0 = (dot(ry64, wy0) + dot(rx64, wx0)
@@ -745,7 +748,7 @@ def conic_delta_anchor(A64, solve_fn, Qd64, ry64, rx64, b64, c64, a_coef,
     e_y = rel_y0 - vy0 - y0
     t0x_32 = (rel_x0 - vx0).to(f32)
     etx = (rel_x0 - vx0) - t0x_32.to(f64)
-    x_a = cone_barrier_prox(t0x_32.to(f64), lam_x[:, None], layout)
+    x_a = cone_barrier_prox(t0x_32.to(f64), lam_x[:, None], layout, co)
     e_x = x_a - x0
     e_vx = x0 - rel_x0
     e_vy = y0 - rel_y0
@@ -821,7 +824,7 @@ def run_conic_delta_chunk(A64, solve_fn, Qd64, ry64, rx64, b64, c64, a_coef,
     anc = conic_delta_anchor(A64, solve_fn, Qd64, ry64, rx64, b64, c64,
                              a_coef, rho_y, rho_x, rho_tau, lam, alpha,
                              thresh, u, v, q_init, layout, A32, Minv32,
-                             Hinv32)
+                             Hinv32, co)
     t_max = torch.full((B,), T, dtype=torch.int32, device=A64.device)
     if active is not None:
         t_max = torch.where(active, t_max, 0).to(torch.int32)

@@ -124,7 +124,7 @@ def prepare_conic_batch(As, bs, cs, Q_diags=None, *, cones: ConeSpec,
     rho_xv = torch.full((n,), rho_x, dtype=As.dtype, device=As.device)
     dss = DenseSchurSolver(A2, Q2, rho_yv, rho_xv, mode="newton",
                            form="woodbury" if woodbury else "primal")
-    r_y, r_x = dss.solve(-b2, c2)
+    r_y, r_x, _ = dss.solve(-b2, c2)
     r_vec = torch.cat([r_y, r_x], dim=1)
     rho_vec = torch.cat([rho_yv, rho_xv])
     a_coef = rho_tau + (rho_vec * r_vec * r_vec).sum(-1)

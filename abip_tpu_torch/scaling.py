@@ -222,23 +222,27 @@ def _clip_keep(v, n_other):
                        torch.minimum(v, MAX_SCALE * root))
 
 
+def _scale_q(Q, E, q_diag):
+    """E^-1 Q E^-1 for a diagonal `(B, n)` or full `(B, n, n)` Q."""
+    if q_diag:
+        return Q / (E * E)
+    return Q / E[:, None, :] / E[:, :, None]
+
+
 def equilibrate_conic(A, Q, b, c, layout, settings):
     """Conic equilibration (`scaling_qcp_data`, `qcp_config.c:91-491`),
     port of `abip_tpu/scaling.py:134-225` for a `(B, m, n)` stack.
 
-    Column scalings come from A and the diagonal Q `(B, n)` (elementwise
-    max), tied to a common value within each SOC/RSOC block, then
-    applied as A <- D^-1 A E^-1, Q <- E^-1 Q E^-1.  Order: ruiz (10
-    iterations) -> origin -> pc, then b/c scaling with
-    sc = (||b||^2 + ||c||^2)^(1/4) of the ORIGINAL data.  The factor
-    loop runs in f32 at and above `_F32_SCALING_MIN_ELEMS` elements per
-    lane, as in the reference, and the factors are applied once to the
-    data in its own dtype.  A full (2-D per lane) Q is not ported."""
+    Column scalings come from A and Q (elementwise max), tied to a
+    common value within each SOC/RSOC block, then applied as
+    A <- D^-1 A E^-1, Q <- E^-1 Q E^-1.  Q is a diagonal `(B, n)`, a full
+    `(B, n, n)` or None.  Order: ruiz (10 iterations) -> origin -> pc,
+    then b/c scaling with sc = (||b||^2 + ||c||^2)^(1/4) of the ORIGINAL
+    data.  The factor loop runs in f32 at and above
+    `_F32_SCALING_MIN_ELEMS` elements per lane, as in the reference, and
+    the factors are applied once to the data in its own dtype."""
     B, m, n = A.shape
-    if Q is not None and Q.dim() != 2:
-        raise NotImplementedError(
-            "a full (n, n) Q is not ported to abip_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 11)")
+    q_diag = Q is not None and Q.dim() == 2
     dtype = A.dtype
 
     # sc from the un-equilibrated b, c (`qcp_config.c:462-463`)
@@ -257,8 +261,16 @@ def equilibrate_conic(A, Q, b, c, layout, settings):
             e1 = torch.sqrt(A.abs().sum(-2))
         if Q is None:
             return e1
-        # any column reduction of a diagonal matrix is |q_j|
-        return torch.maximum(e1, torch.sqrt(Q.abs()))
+        if q_diag:
+            # any column reduction of a diagonal matrix is |q_j|
+            e2 = torch.sqrt(Q.abs())
+        elif kind == "inf":
+            e2 = torch.sqrt(Q.abs().amax(-2))
+        elif kind == "l2":
+            e2 = torch.sqrt(torch.linalg.vector_norm(Q, dim=-2))
+        else:
+            e2 = torch.sqrt(Q.abs().sum(-2))
+        return torch.maximum(e1, e2)
 
     def row_metric(A, kind):
         if kind == "inf":
@@ -272,7 +284,7 @@ def equilibrate_conic(A, Q, b, c, layout, settings):
         D = _clip_keep(row_metric(A, kind), n)
         A = A / E[:, None, :] / D[:, :, None]
         if Q is not None:
-            Q = Q / (E * E)
+            Q = _scale_q(Q, E, q_diag)
         return A, Q, D_hat * D, E_hat * E
 
     fdt = _factor_dtype(A)
@@ -291,7 +303,7 @@ def equilibrate_conic(A, Q, b, c, layout, settings):
     E_hat = E_f.to(dtype)
     A = A / E_hat[:, None, :] / D_hat[:, :, None]
     if Q is not None:
-        Q = Q / (E_hat * E_hat)
+        Q = _scale_q(Q, E_hat, q_diag)
 
     b = b / D_hat * (sc_b * settings.scale)[:, None]
     c = c / E_hat * (sc_c * settings.scale)[:, None]

@@ -71,7 +71,20 @@ duration:
    RSOC(4), the rest nonneg, m=50), whose lane one block per lane could
    not hold in shared memory, solved on the card through the kernels
    (K2 with A streamed through L2 at C=6): every lane Solved within 1e-5
-   of its known optimum, as the reference solves it.
+   of its known optimum, as the reference solves it;
+7. the single-instance front door: three fresh dim-1020 instances
+   through `solve_qcp` with conic defaults (dense "chol", Woodbury form)
+   and again with dense_mode="inverse_mixed", rho_y=1e-3; a diagonal Q
+   and a full PSD Q (the primal form); one n=5100 instance of
+   `tools/conic_bench.family(scale=25)`, where linsys "auto" takes the CG
+   Schur solver; a warm start, a checkpointed and resumed solve and
+   `update_problem` on one workspace; every file of the committed
+   cblib_mini (.cbf), conic_mini (.mat) and netlib_mini (.mps, sparse,
+   K5 counted) suites through the CLI's own functions, and one
+   `python -m abip_tpu_torch FILE.cbf --json`; each against its known
+   optimum (the .mps against scipy's HiGHS) within 1e-5; then a profile
+   of one dim-1020 solve (busy share, launches per ADMM iteration, top
+   device operations).
 
     python3 chip_smoke.py --ab PARENT
 
@@ -80,7 +93,8 @@ parent commit, unpacked with `git archive`), each in a process of its
 own, in the order this, PARENT, this, and prints their times.
 
 Each main path runs with its kernels' launch counts set to 0 just
-before it and read just after.  Exits nonzero, printing no result,
+before it and read just after (K5 also on the MPS route of phase 7,
+`mps_route_launches`).  Exits nonzero, printing no result,
 without a card or on any failure.  The last three lines are the kernel summary
 (JSON, with each kernel's bound on this card), the card's name and power
 limit, and the result (JSON).
@@ -435,17 +449,17 @@ def phase_timing(torch, dev, card):
 def profile_solve(torch, run, kernels, label):
     """Device time of one solve by kernel, from the profiler; `kernels`
     maps a label to a substring (or a tuple of substrings) of kernel
-    names.  Only the device's kernel events are summed (an op's own
-    device time would count its kernels twice).  The busy share is given
-    against the profiled wall and against an unprofiled run of the same
-    solve just before it."""
+    names.  Only the device is recorded, and only its kernel events are
+    summed.  The busy share is given against the profiled wall and
+    against an unprofiled run of the same solve just before it.
+    Returns {"launches", "busy_us", "sec", "plain_sec"}, or None where
+    the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     from abip_tpu_torch.utils.timing import wall_s
 
     plain_sec, _ = wall_s(run)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sec, _ = wall_s(run)
 
     def dev_us(e):
@@ -460,7 +474,7 @@ def profile_solve(torch, run, kernels, label):
     if total <= 0.0:
         print(f"profile {label}: the profiler recorded no device time (not "
               "measured)")
-        return
+        return None
     shares, named = [], 0.0
     for name, subs in kernels.items():
         subs = (subs,) if isinstance(subs, str) else subs
@@ -476,6 +490,8 @@ def profile_solve(torch, run, kernels, label):
           f"{', '.join(shares)} of device time")
     for key, us, count in sorted(events, key=lambda e: -e[1])[:6]:
         print(f"profile   {us / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    return {"launches": sum(c for _, _, c in events), "busy_us": total,
+            "sec": sec, "plain_sec": plain_sec}
 
 
 def phase_profile(torch, dev):
@@ -1639,6 +1655,331 @@ def phase_repair(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# the single-instance front door: the host conic driver, io/ and the CLI
+# ---------------------------------------------------------------------------
+
+# fresh dim-1020 instances of CONIC_SPEC through `solve_qcp`, conic
+# defaults (rho_y=1e-6, linsys "auto": dense "chol", Woodbury form)
+FRONT_SEEDS = (8700, 8701, 8702)
+FRONT_EPS = 1e-6
+# `tools/conic_bench.family(scale=25)`: the smallest of that family where
+# linsys="auto" takes the CG Schur solver (n > 4096); dense A is 69 MB
+CG_SPEC = dict(soc=(625, 625), rsoc=(100,), nonneg=3750)    # n = 5100
+CG_M = 1700
+SUITES = os.path.join(ROOT, "benchmarks", "suites")
+PROFILE_IPM = 8               # barrier stages of the profiled conic solve
+
+
+def randqcp(name, m, cones, seed):
+    """`benchmarks/conic_mini.randqcp(..., q_rank=None)` on the port's
+    `ConeSpec`: a full PSD Q = M'M + 0.1 I, pobj* = 0.5 x*'Qx* + c'x*."""
+    rng = np.random.default_rng(seed)
+    n = cones.dim
+    A = rng.standard_normal((m, n)) / np.sqrt(n)
+    A[rng.random((m, n)) < 0.5] = 0.0
+    M = rng.standard_normal((n, n)) / np.sqrt(n)
+    Q = M.T @ M + 0.1 * np.eye(n)
+    xstar, sstar = _complementary_pair(cones, rng)
+    ystar = rng.standard_normal(m)
+    b = A @ xstar
+    c = A.T @ ystar + sstar - Q @ xstar
+    return name, A, b, c, Q, cones, 0.5 * float(xstar @ Q @ xstar) + float(
+        c @ xstar)
+
+
+def front_check(label, sol, star, sec=None):
+    """Print one solve's line; raise unless it is Solved, finite and
+    within 1e-5 of `star` relative to max(1, |star|)."""
+    rel = abs(sol.pobj - star) / max(1.0, abs(star))
+    wall = "" if sec is None else f"wall {sec:.3f} s, "
+    print(f"{label}: {sol.status_name}, IPM {sol.ipm_iters}, ADMM "
+          f"{sol.admm_iters}, {wall}setup {sol.setup_time:.3f} s, solve "
+          f"{sol.solve_time:.3f} s, "
+          f"{sol.admm_iters / max(sol.solve_time, 1e-12):.1f} ADMM it/s, "
+          f"pobj {sol.pobj:.10g} vs {star:.10g}, relative gap {rel:.3e} "
+          f"(limit 1e-5)")
+    if sol.status_name != "Solved" or not (
+            np.isfinite(sol.x).all() and np.isfinite(sol.pobj)) or rel > 1e-5:
+        raise AssertionError(f"{label}: {sol.status_name}, relative gap "
+                             f"{rel:.3e}")
+    return rel
+
+
+def phase_front_conic(torch, dev):
+    """`solve_qcp` as a user calls it (default device) on fresh dim-1020
+    instances: conic defaults, then dense_mode="inverse_mixed" with
+    rho_y=1e-3; a diagonal Q and a full PSD Q (the primal form)."""
+    from abip_tpu_torch import ConeSpec, ConicWorkspace, solve_qcp
+    from abip_tpu_torch.utils.timing import wall_s
+
+    cones = ConeSpec(**CONIC_SPEC)
+    data = [randcone("f", CONIC_M, cones, s) for s in FRONT_SEEDS]
+    ws = ConicWorkspace(*data[0][1:4], cones)
+    print(f"front door dim-1020 (m={CONIC_M}, n=1020) conic defaults: "
+          f"{type(ws.solver).__name__} mode {ws.solver.mode} form "
+          f"{ws.solver.form}")
+    if (ws.solver.mode, ws.solver.form) != ("chol", "woodbury"):
+        raise AssertionError("linsys 'auto' did not pick dense chol in the "
+                             "Woodbury form at dim-1020")
+    for label, kw in (("conic defaults", {}),
+                      ("inverse_mixed rho_y=1e-3",
+                       dict(dense_mode="inverse_mixed", rho_y=1e-3))):
+        for (_, A, b, c, _, star), seed in zip(data, FRONT_SEEDS):
+            sec, sol = wall_s(lambda: solve_qcp(A, b, c, cones,
+                                                eps=FRONT_EPS, **kw))
+            front_check(f"front door dim-1020 seed {seed} {label}", sol,
+                        star, sec)
+    _, A, b, c, Qd, _, star = randqcp_diag("qd", CONIC_M, cones, 8710)
+    sec, sol = wall_s(lambda: solve_qcp(A, b, c, cones, Q=Qd, eps=FRONT_EPS))
+    front_check("front door dim-1020 diagonal Q", sol, star, sec)
+    _, A, b, c, Q, _, star = randqcp("qf", CONIC_M, cones, 8711)
+    ws = ConicWorkspace(A, b, c, cones, Q=Q)
+    if ws.solver.form != "primal":
+        raise AssertionError("a full Q did not take the primal form")
+    sec, sol = wall_s(lambda: solve_qcp(A, b, c, cones, Q=Q, eps=FRONT_EPS))
+    front_check("front door dim-1020 full PSD Q (primal form)", sol, star,
+                sec)
+
+
+def phase_front_cg(torch, dev):
+    """One n=5100 instance, where linsys "auto" takes CGSchurSolver."""
+    from abip_tpu_torch import ConeSpec, ConicWorkspace, conic_defaults
+    from abip_tpu_torch.linsys.schur import CGSchurSolver
+    from abip_tpu_torch.utils.timing import wall_s
+
+    cones = ConeSpec(**CG_SPEC)
+    _, A, b, c, _, star = randcone("cg", CG_M, cones, 8720)
+
+    def run():
+        ws = ConicWorkspace(A, b, c, cones,
+                            settings=conic_defaults(eps=FRONT_EPS))
+        return ws, ws.solve()
+
+    sec, (ws, sol) = wall_s(run)
+    if not isinstance(ws.solver, CGSchurSolver):
+        raise AssertionError(f"n=5100 took {type(ws.solver).__name__}")
+    front_check(f"front door CG n=5100 m={CG_M} ({type(ws.solver).__name__}, "
+                f"avg CG iterations {sol.avg_cg_iters:.1f})", sol, star, sec)
+    return sec
+
+
+def phase_front_workspace(torch, dev):
+    """Warm start, a checkpointed and resumed solve, and `update_problem`
+    on one dim-1020 workspace: each Solved at its known optimum."""
+    import tempfile
+
+    from abip_tpu_torch import ConeSpec, ConicWorkspace, conic_defaults
+    from abip_tpu_torch.utils.checkpoint import ConicCheckpoint
+    from abip_tpu_torch.utils.timing import wall_s
+
+    cones = ConeSpec(**CONIC_SPEC)
+    _, A, b, c, _, star = randcone("w", CONIC_M, cones, 8730)
+    ws = ConicWorkspace(A, b, c, cones, settings=conic_defaults(eps=FRONT_EPS))
+    sec, cold = wall_s(ws.solve)
+    front_check("front door workspace cold", cold, star, sec)
+    sec, hot = wall_s(lambda: ws.solve(warm=(cold.x, cold.y, cold.s)))
+    front_check("front door workspace warm-started from the cold solution",
+                hot, star, sec)
+    with tempfile.TemporaryDirectory() as d:
+        ck = os.path.join(d, "conic")
+        ConicWorkspace(A, b, c, cones, settings=conic_defaults(
+            eps=FRONT_EPS, max_ipm_iters=4)).solve(checkpoint_path=ck,
+                                                   checkpoint_every=1)
+        state = ConicCheckpoint.load(ck)
+        sec, res = wall_s(lambda: ws.solve(resume=state))
+    front_check(f"front door workspace resumed after {state.ipm_iters} IPM / "
+                f"{state.admm_iters} ADMM iterations", res, star, sec)
+    # a second known optimum on the same A: a fresh complementary pair
+    rng = np.random.default_rng(8731)
+    xs, ss = _complementary_pair(cones, rng)
+    b2, c2 = A @ xs, A.T @ rng.standard_normal(CONIC_M) + ss
+    sec, upd = wall_s(lambda: ws.update_problem(b2, c2).solve())
+    front_check("front door workspace update_problem (new b, c)", upd,
+                float(c2 @ xs), sec)
+
+
+def sedumi_certificate(path, sol, label):
+    """Hold a solve of a SeDuMi file with no recorded optimum to a check
+    of its own, in numpy on the file's own A, b, c and K (order [free,
+    nonneg, soc...]): primal and dual residuals and the duality gap of the
+    returned (x, y, s) within 1e-5, and x in K, s in K* (free's dual is
+    0) within 1e-9 of max(1, |block|)."""
+    from scipy.io import loadmat
+
+    d = loadmat(path, simplify_cells=True)
+    A = d["A"] if "A" in d else d["At"].T
+    b, c = (np.ravel(d[k]).astype(float) for k in ("b", "c"))
+    K = d["K"]
+    if np.size(K.get("r", [])):
+        raise AssertionError(f"{label}: the check does not cover K.r")
+    x, y, s = sol.x, sol.y, sol.s
+    pri, dual, gap = lp_certificate(A, b, c, sol)
+    f, nl = int(np.sum(K.get("f", 0))), int(np.sum(K.get("l", 0)))
+    viol = [np.abs(s[:f]).max(initial=0.0) / max(1.0, np.linalg.norm(s))]
+    for v in (x, s):
+        viol.append(-v[f:f + nl].min(initial=0.0))
+    pos = f + nl
+    for k in (int(q) for q in np.atleast_1d(K.get("q", [])) if q > 0):
+        for v in (x, s):
+            blk = v[pos:pos + k]
+            viol.append((np.linalg.norm(blk[1:]) - blk[0])
+                        / max(1.0, np.linalg.norm(blk)))
+        pos += k
+    worst = max(viol)
+    print(f"{label}: {sol.status_name}, IPM {sol.ipm_iters}, ADMM "
+          f"{sol.admm_iters}, pobj {sol.pobj:.10g} (no recorded optimum: "
+          f"checked on the file's data) res_pri {pri:.3e}, res_dual "
+          f"{dual:.3e}, gap {gap:.3e} (limit 1e-5), cone violation "
+          f"{worst:.3e} (limit 1e-9)")
+    if (sol.status_name != "Solved" or max(pri, dual, gap) > 1e-5
+            or worst > 1e-9):
+        raise AssertionError(f"{label}: {sol.status_name}, certificate off")
+
+
+def phase_front_files(torch, dev):
+    """The committed suites through the CLI's own functions, on the card:
+    every conic_mini .mat against its stored pobj_star (a file without
+    one held to `sedumi_certificate`), every cblib_mini .cbf against
+    optima.json in the instance's own sense (an instance without a
+    recorded optimum against its certified SeDuMi twin), every
+    netlib_mini .mps with dense=False against scipy's HiGHS on the
+    presolved standard form, K5 held to its plain version on each packed
+    A and A' and counted; then one `python -m abip_tpu_torch FILE.cbf
+    --json` subprocess.  Returns K5's launches on the MPS route."""
+    import glob
+    import time
+
+    from scipy.optimize import linprog
+
+    from abip_tpu_torch.io.cbf import solve_cbf
+    from abip_tpu_torch.io.mps import read_mps
+    from abip_tpu_torch.io.presolve import presolve_to_standard, solve_mps
+    from abip_tpu_torch.io.sedumi import solve_sedumi
+    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
+    from abip_tpu_torch.problem import bcsr_fill_estimate
+
+    def base(p):
+        return os.path.basename(p).rsplit(".", 1)[0]
+
+    mats = {}
+    t0 = time.perf_counter()
+    for p in sorted(glob.glob(os.path.join(SUITES, "conic_mini", "*.mat"))):
+        sol, ex = solve_sedumi(p, eps=FRONT_EPS, extra_fields=("pobj_star",))
+        mats[base(p)] = sol.pobj
+        star = ex["pobj_star"]
+        if star is None:       # no recorded optimum: an independent check
+            sedumi_certificate(p, sol, f"front door {base(p)}.mat")
+            continue
+        front_check(f"front door {base(p)}.mat", sol,
+                    float(np.asarray(star).ravel()[0]))
+    with open(os.path.join(SUITES, "cblib_mini", "optima.json")) as f:
+        optima = json.load(f)
+    for p in sorted(glob.glob(os.path.join(SUITES, "cblib_mini", "*.cbf"))):
+        name = base(p)
+        sol, _x, obj = solve_cbf(p, eps=FRONT_EPS)
+        twin = name.replace("_rows", "").replace("_max", "")
+        star = optima.get(name)
+        if star is None:
+            star = -mats[twin] if name.endswith("_max") else mats[twin]
+        rel = abs(obj - star) / max(1.0, abs(star))
+        print(f"front door {name}.cbf: {sol.status_name}, IPM "
+              f"{sol.ipm_iters}, ADMM {sol.admm_iters}, objective (instance "
+              f"sense) {obj:.10g} vs {star:.10g}"
+              f"{'' if name in optima else ' (its certified .mat twin)'}, "
+              "relative gap "
+              f"{rel:.3e} (limit 1e-5)")
+        if sol.status_name != "Solved" or rel > 1e-5:
+            raise AssertionError(f"{name}.cbf: {sol.status_name}, {rel:.3e}")
+    conic_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k5 = 0
+    for p in sorted(glob.glob(os.path.join(SUITES, "netlib_mini", "*.mps"))):
+        # K5 against its plain version on this file's A and A', where the
+        # driver packs them (the pattern of the equilibrated A is std.A's)
+        A = presolve_to_standard(read_mps(p)).A.tocsr()
+        packed = bcsr_fill_estimate(A) > 0.05
+        if packed:
+            for what, M in (("A", A), ("A'", A.T.tocsr())):
+                spmv_parity(torch, dev, f"{base(p)}.mps {what} {M.shape[0]}x"
+                            f"{M.shape[1]}", M, "f64")
+        bcsr_matvec_cuda.launches = 0
+        sol, std = solve_mps(p, dense=False, eps=FRONT_EPS)
+        launches = bcsr_matvec_cuda.launches
+        if (launches > 0) != packed:
+            raise AssertionError(f"{base(p)}.mps: K5 launches {launches}, "
+                                 f"packed {packed}")
+        k5 += launches
+        ref = linprog(std.c, A_eq=std.A, b_eq=std.b, bounds=(0, None),
+                      method="highs")
+        if ref.status != 0:
+            raise AssertionError(f"HiGHS failed on {base(p)}: {ref.message}")
+        star = std.user_objective(ref.fun)
+        rel = abs(sol.pobj - star) / max(1.0, abs(star))
+        print(f"front door {base(p)}.mps {std.A.shape[0]}x{std.A.shape[1]} "
+              f"sparse: {sol.status_name}, IPM {sol.ipm_iters}, ADMM "
+              f"{sol.admm_iters}, solve {sol.solve_time:.3f} s, K5 launches "
+              f"{launches}, pobj {sol.pobj:.10g} vs HiGHS {star:.10g}, "
+              f"relative gap {rel:.3e} (limit 1e-5)")
+        if sol.status_name != "Solved" or rel > 1e-5:
+            raise AssertionError(f"{base(p)}.mps: {sol.status_name}, "
+                                 f"{rel:.3e}")
+    mps_s = time.perf_counter() - t0
+    if k5 <= 0:
+        raise AssertionError("the MPS route launched K5 no time")
+    path = os.path.join(SUITES, "cblib_mini", "rand_soc_b_max.cbf")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "abip_tpu_torch", path,
+                           "--json"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300, check=False)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode or not lines:
+        print(proc.stdout[-2000:], proc.stderr[-2000:], file=sys.stderr)
+        raise AssertionError("python -m abip_tpu_torch FILE.cbf failed")
+    rec = json.loads(lines[-1])
+    star = optima["rand_soc_b_max"]
+    rel = abs(rec["objective"] - star) / max(1.0, abs(star))
+    print(f"front door CLI `python -m abip_tpu_torch rand_soc_b_max.cbf "
+          f"--json` ({time.perf_counter() - t0:.1f} s with start-up): "
+          f"{lines[-1]}; objective vs {star:.10g}: relative gap {rel:.3e}")
+    if rec["status"] != "Solved" or rel > 1e-5:
+        raise AssertionError("the CLI's solve is off")
+    print(f"front door files: 12 .mat + 12 .cbf in {conic_s:.1f} s, 12 .mps "
+          f"in {mps_s:.1f} s, K5 launches on the MPS route {k5}")
+    return k5
+
+
+def phase_front_profile(torch, dev):
+    """One dim-1020 solve, its workspace set up beforehand, cut at
+    PROFILE_IPM barrier stages (the profiler's own processing grows with
+    the ~440 launches of every ADMM iteration): the card's busy share,
+    launches per ADMM iteration and the top device operations."""
+    from abip_tpu_torch import ConeSpec, ConicWorkspace, conic_defaults
+
+    cones = ConeSpec(**CONIC_SPEC)
+    _, A, b, c, _, _ = randcone("p", CONIC_M, cones, 8740)
+    ws = ConicWorkspace(A, b, c, cones, settings=conic_defaults(
+        eps=FRONT_EPS, max_ipm_iters=PROFILE_IPM))
+    out = {}
+
+    def run():
+        out["sol"] = ws.solve()
+
+    prof = profile_solve(torch, run, {
+        "cholesky_solve (trsm/trsv)": ("trsm", "trsv"),
+        "gemv/gemm": ("gemv", "gemm", "Gemv", "Gemm"),
+        "reductions": ("reduce", "Reduce", "norm")},
+        f"one host conic solve dim-1020, first {PROFILE_IPM} barrier "
+        "stages")
+    if prof:
+        it = out["sol"].admm_iters
+        print(f"profile host conic: {prof['launches']} device launches over "
+              f"{out['sol'].ipm_iters} IPM / {it} ADMM iterations = "
+              f"{prof['launches'] / max(1, it):.1f} "
+              f"per iteration; {1e3 * prof['plain_sec'] / max(1, it):.3f} ms "
+              "per iteration unprofiled")
+
+
+# ---------------------------------------------------------------------------
 # the host LP driver and K5
 # ---------------------------------------------------------------------------
 
@@ -2116,15 +2457,25 @@ def main():
                    card)
     phase("spilled forms", phase_spilled, torch, dev)
     phase("shape repair", phase_repair, torch, dev)
+
+    t7 = time.perf_counter()
+    phase("front door conic", phase_front_conic, torch, dev)
+    phase("front door CG", phase_front_cg, torch, dev)
+    phase("front door workspace", phase_front_workspace, torch, dev)
+    k5_mps = phase("front door files", phase_front_files, torch, dev)
+    phase("front door profile", phase_front_profile, torch, dev)
+    print(f"phase 7 (front door): {time.perf_counter() - t7:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
-    def entry(name, source, replaces, launches, err, times, library=None):
+    def entry(name, source, replaces, launches, err, times, library=None,
+              **more):
         ms, plain, bms, by = times
         return {"name": name, "route": "cuda",
                 "source": f"abip_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": bms, "bound_by": by, "library_ms": library}
+                "bound_ms": bms, "bound_by": by, "library_ms": library,
+                **more}
 
     print(json.dumps({"kernels": [
         entry("delta_cluster_kernel", "admm_delta.cu",
@@ -2137,7 +2488,8 @@ def main():
               "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4),
         entry("csr_spmv_kernel", "bcsr_spmv.cu",
               "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,
-              (k5[0], k5[1], k5[3], k5[4]), library=k5[2]),
+              (k5[0], k5[1], k5[3], k5[4]), library=k5[2],
+              mps_route_launches=k5_mps),
         entry("sprint_cluster_kernel<stop>", "admm_sprint.cu",
               "abip_tpu/ops/admm_pallas.py:327", k6_launches, k6_err, k6),
         entry("sprint_cluster_kernel<plain>", "admm_sprint.cu",

@@ -20,6 +20,8 @@ workspace, for shapes no shared memory holds) against the plain version,
 batches solved with every kernel spilled (`device.limit_shared_memory`),
 and a batch whose lane one block of the first K2 could not hold in
 shared memory solved through the kernels (`chip_smoke.phase_repair`).
+The host conic driver (no kernel of its own): `solve_qcp` on the card
+against the port on the CPU, and the CLI's file functions on the card.
 """
 import functools
 
@@ -426,6 +428,72 @@ def test_host_lp_float32_on_card(cuda_device, sparse):
     f64 = solve_lp(A, b, c, eps=1e-4, device=cuda_device)
     assert f32.status_name == f64.status_name == "Solved"
     assert abs(f32.pobj - f64.pobj) <= 1e-3 * abs(f64.pobj)
+
+
+# -- the host conic driver ----------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["chol", "inverse_mixed", "diag-q", "full-q",
+                                  "cg"])
+def test_solve_qcp_on_card_matches_cpu(cuda_device, case):
+    """`solve_qcp` on the card (its default device) against the port on
+    the CPU, on a small `chip_smoke.randcone` / `randqcp` instance: the
+    same f64 driver, so equal status and IPM count, ADMM counts within
+    10% (cuSOLVER and LAPACK round the factor differently) and objectives
+    within 1e-6 relative; the iterate lives on the card."""
+    import numpy as np
+
+    from abip_tpu_torch import ConeSpec, ConicWorkspace, conic_defaults
+
+    cones = ConeSpec(**chip_smoke.SMALL_SPEC)
+    kw, Q = {}, None
+    if case in ("chol", "inverse_mixed", "cg"):
+        _, A, b, c, _, star = chip_smoke.randcone("c", 8, cones, 41)
+        kw = {"inverse_mixed": dict(dense_mode="inverse_mixed", rho_y=1e-3),
+              "cg": dict(linsys="cg")}.get(case, {})
+    elif case == "diag-q":
+        _, A, b, c, Q, _, star = chip_smoke.randqcp_diag("d", 8, cones, 42)
+    else:
+        _, A, b, c, Q, _, star = chip_smoke.randqcp("f", 8, cones, 43)
+    s = conic_defaults(eps=1e-7, **kw)
+    ws = ConicWorkspace(A, b, c, cones, Q=Q, settings=s)
+    assert ws.device.type == "cuda" and ws.b.is_cuda
+    card = ws.solve()
+    cpu = ConicWorkspace(A, b, c, cones, Q=Q, settings=s,
+                         device="cpu").solve()
+    assert card.status_name == cpu.status_name == "Solved"
+    assert card.ipm_iters == cpu.ipm_iters
+    assert abs(card.admm_iters - cpu.admm_iters) <= 0.1 * cpu.admm_iters
+    assert abs(card.pobj - cpu.pobj) <= 1e-6 * max(1.0, abs(cpu.pobj))
+    assert abs(card.pobj - star) <= 1e-5 * max(1.0, abs(star))
+    assert np.isfinite(card.x).all()
+
+
+@pytest.mark.cuda
+def test_front_door_files_on_card(cuda_device):
+    """The CLI's functions on the card: a .cbf, a .mat and a sparse .mps
+    (K5 counted where its standard form packs BCSR)."""
+    import json
+    import os
+
+    from abip_tpu_torch.io.cbf import solve_cbf
+    from abip_tpu_torch.io.presolve import solve_mps
+    from abip_tpu_torch.io.sedumi import solve_sedumi
+    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
+
+    suites = chip_smoke.SUITES
+    with open(os.path.join(suites, "cblib_mini", "optima.json")) as f:
+        star = json.load(f)["rand_soc_b_max"]
+    sol, _, obj = solve_cbf(os.path.join(suites, "cblib_mini",
+                                         "rand_soc_b_max.cbf"), eps=1e-6)
+    assert sol.status_name == "Solved" and abs(obj - star) <= 1e-5
+    sol = solve_sedumi(os.path.join(suites, "conic_mini", "rand_soc_a.mat"),
+                       eps=1e-6)
+    assert sol.status_name == "Solved"
+    bcsr_matvec_cuda.launches = 0
+    sol, _ = solve_mps(os.path.join(suites, "netlib_mini", "rev02.mps"),
+                       dense=False, eps=1e-6)
+    assert sol.status_name == "Solved" and bcsr_matvec_cuda.launches > 0
 
 
 # -- the sprint engines: K6, K7, K4, K8 ---------------------------------------

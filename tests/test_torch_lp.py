@@ -190,17 +190,26 @@ def test_dispatch_matches_reference():
 
 
 def test_unported_entry_points_raise():
+    """The entry points still to port raise, naming their queue item;
+    the conic branch of `dispatch.solve` and `solve_general`, ported
+    since, take their problems (`tests/test_torch_qcp.py`,
+    `tests/test_torch_io.py` hold them to the reference)."""
     A, b, c = _smoke()
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        abip_tpu_torch.solve(A, b, c, cones=abip_tpu_torch.ConeSpec(
-            soc=(A.shape[1],)), **CPU)
-    from abip_tpu_torch.dispatch import solve_general
-
-    with pytest.raises(NotImplementedError, match="queue 1, item 13"):
-        solve_general(A, c)
     ws = LPWorkspace(A, b, c, Settings(eps=1e-6), **CPU)
     with pytest.raises(NotImplementedError, match="queue 1, item 16"):
         ws.shard(None)
+    cw = abip_tpu_torch.ConicWorkspace(
+        A, b, c, abip_tpu_torch.ConeSpec.lp(A.shape[1]), **CPU)
+    with pytest.raises(NotImplementedError, match="queue 1, item 16"):
+        cw.shard(None)
+    from abip_tpu_torch.dispatch import solve_general
+
+    sol = solve_general(A, c, row_lo=b, row_hi=b, eps=1e-6, **CPU)
+    assert sol.status_name == "Solved"
+    assert type(abip_tpu_torch.solve(
+        A, b, c, cones=abip_tpu_torch.ConeSpec(nonneg=A.shape[1] - 1,
+                                               free=1),
+        max_ipm_iters=1, **CPU)).__name__ == "ConicSolution"
 
 
 @pytest.mark.parametrize("bad,match", [

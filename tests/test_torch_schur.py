@@ -50,9 +50,10 @@ def test_dense_schur_newton_matches_reference(form, diag_q):
     port = schur.DenseSchurSolver(
         torch.from_numpy(A), None if Q is None else torch.from_numpy(Q),
         torch.full((m,), 1e-3, dtype=torch.float64),
-        torch.ones(n, dtype=torch.float64), form=form)
+        torch.ones(n, dtype=torch.float64), mode="newton", form=form)
     assert port.form == form
-    zy, zx = port.solve(torch.from_numpy(wy), torch.from_numpy(wx))
+    zy, zx, its = port.solve(torch.from_numpy(wy), torch.from_numpy(wx))
+    assert its == 0
     for i in range(B):
         ref = jschur.DenseSchurSolver(
             jnp.asarray(A[i]), None if Q is None else jnp.asarray(Q[i]),
@@ -81,15 +82,38 @@ def test_newton_inverse_is_f64_accurate():
 
 
 def test_auto_form_and_unported_modes():
-    A = torch.zeros((1, 3, 8), dtype=torch.float64)
+    """The auto form rule (Woodbury for a diagonal H at 4m <= 3n, in modes
+    "chol" and "newton"), modes "chol" (the default) and "inverse_mixed"
+    build and solve, and the reference's refusals: `form="woodbury"` with
+    a full Q or with "inverse_mixed" raises ValueError."""
+    rng = np.random.default_rng(2)
+    A = torch.from_numpy(rng.standard_normal((1, 3, 8)))
     r = torch.ones(3, dtype=torch.float64), torch.ones(8, dtype=torch.float64)
     assert schur.DenseSchurSolver(A, None, *r).form == "woodbury"
+    assert schur.DenseSchurSolver(A, None, *r).mode == "chol"
     assert schur.DenseSchurSolver(A[:, :, :3], None, r[0],
                                   r[1][:3]).form == "primal"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schur.DenseSchurSolver(A, None, *r, mode="chol")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        schur.DenseSchurSolver(A, torch.zeros((1, 8, 8)), *r)
+    assert schur.DenseSchurSolver(A, None, *r,
+                                  mode="inverse_mixed").form == "primal"
+    G = rng.standard_normal((1, 8, 8))
+    Qf = torch.from_numpy(G @ G.transpose(0, 2, 1))
+    assert schur.DenseSchurSolver(A, Qf, *r).form == "primal"
+    wy, wx = torch.ones((1, 3), dtype=torch.float64), torch.ones(
+        (1, 8), dtype=torch.float64)
+    for mode in ("chol", "inverse_mixed"):
+        for Q in (None, Qf):
+            s = schur.DenseSchurSolver(A, Q, *r, mode=mode)
+            for hint in (None, 1e3):
+                zy, zx, its = s.solve(wy, wx, tol_hint=hint)
+                # the block system's second row: -A' z_y + (Q + R_x) z_x
+                Qz = 0.0 if Q is None else schur._mv(Q, zx)
+                res = (-schur._mv(A.transpose(1, 2), zy) + Qz + zx - wx)
+                assert its == 0 and float(res.abs().max()) < 1e-9
+    with pytest.raises(ValueError, match="woodbury"):
+        schur.DenseSchurSolver(A, Qf, *r, form="woodbury")
+    with pytest.raises(ValueError, match="primal"):
+        schur.DenseSchurSolver(A, None, *r, mode="inverse_mixed",
+                               form="woodbury")
 
 
 @pytest.mark.parametrize("diag_q,m,n,rtol", [
