@@ -45,10 +45,12 @@ from .qcp import ConicSolution, ConicWorkspace, conic_defaults, solve_qcp
 from .problem import LinearOperator
 from .parallel.batched import solve_lp_batch
 from .parallel.batched_qcp import solve_qcp_batch
+from .problems import solve_lasso, solve_svm
 
 __version__ = "0.3.0"
 
 __all__ = ["ConeSpec", "ConicSolution", "ConicWorkspace", "LinearOperator",
            "LPSolution", "LPWorkspace", "Settings", "Status",
-           "conic_defaults", "solve", "solve_lp", "solve_lp_batch",
-           "solve_qcp", "solve_qcp_batch", "__version__"]
+           "conic_defaults", "solve", "solve_lasso", "solve_lp",
+           "solve_lp_batch", "solve_qcp", "solve_qcp_batch", "solve_svm",
+           "__version__"]

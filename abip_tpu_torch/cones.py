@@ -2,7 +2,8 @@
 
 Port of `abip_tpu/cones.py`.  `ConeSpec` and `ConeLayout` are the
 reference's numpy/dataclass code, copied (the reference module imports
-JAX).  The prox works on `(B, n)` tensors: every lane shares one layout.
+JAX).  The prox works on `(B, n)` tensors: every lane shares one layout,
+or (`PaddedConeLayout`) each lane has its own, padded to one width.
 
 SOC/RSOC blocks are contiguous ranges of the cone tail
 ([soc..., rsoc..., free, zero, nonneg], `source/abip.c:358-409`).  One
@@ -181,11 +182,7 @@ class ConeLayout:
         (`source/qcp_config.c:194-212`); `e` is `(B, n)`."""
         if not self.has_blocks:
             return e
-        co = cone_operands(self.spec, e.device)
-        bl = Blocks.of(co)
-        sums = bl.head(e) + bl.head2(e) + bl.body_sum(e)
-        means = sums / co.length.to(e.dtype)
-        return torch.where(co.code >= E_SOC_H, bl.gather(means), e)
+        return _mean_tie(e, cone_operands(self.spec, e.device))
 
 
 # element classes of a cone tail, as the kernels read them
@@ -247,10 +244,134 @@ def cone_operands(spec: ConeSpec, device=None) -> ConeOperands:
                           for x in _cone_operands_np(spec)])
 
 
+def _padded_operands_np(spec: ConeSpec, n_pad: int, nb_pad: int):
+    """One lane's operands embedded at n_pad elements and nb_pad blocks:
+    padded elements are zero-cone, unused block rows an empty SOC block
+    at element 0 (never gathered back: no element names it), and body
+    indices that pointed past the lane's n point past n_pad."""
+    code, blk, start, length, soc, body = _cone_operands_np(spec)
+    n, nb = code.shape[0], start.shape[0]
+    codep = np.full(n_pad, E_ZERO, np.int32)
+    codep[:n] = code
+    blkp = np.zeros(n_pad, np.int32)
+    blkp[:n] = blk
+    rows = lambda x, fill: np.concatenate(  # noqa: E731
+        [x, np.full(nb_pad - nb, fill, np.int32)])
+    bodyp = np.full((nb_pad, body.shape[1]), n_pad, np.int64)
+    bodyp[:nb] = np.where(body >= n, n_pad, body)
+    return (codep, blkp, rows(start, 0), rows(length, 1), rows(soc, 1),
+            bodyp)
+
+
+class PaddedConeLayout:
+    """A cone layout per lane, padded to one element count (port of
+    `abip_tpu/cones.py:199-286`): one batch solves instances whose cone
+    structures differ.
+
+    Each lane's `ConeLayout` arrays (`kind`, `seg`, `head`) are padded to
+    n_pad elements with ZERO-cone elements: the prox pins them to 0, so
+    with zero A columns and c entries they are inert.  `from_layout`
+    embeds one layout (arrays `(n_pad,)`, operands shared by every
+    lane); `stack` one layout per lane (arrays `(B, n_pad)`, operands
+    with a lane axis).  `has_soc`/`has_rsoc` are suite-wide ORs: a lane
+    without SOC blocks masks the SOC math out elementwise.  It offers the
+    `ConeLayout` surface the steps engine uses: `interior_point`,
+    `segment_mean_tie` and `operands`."""
+
+    def __init__(self, specs, kind, seg, head, n, num_blocks, has_blocks,
+                 has_soc, has_rsoc, lanes):
+        self.specs = tuple(specs)
+        self.kind, self.seg, self.head = kind, seg, head
+        self.n = n
+        self.num_blocks = num_blocks
+        self.has_blocks = has_blocks
+        self.has_soc = has_soc
+        self.has_rsoc = has_rsoc
+        self.lanes = lanes          # False: one layout shared by every lane
+
+    @classmethod
+    def from_layout(cls, lay: ConeLayout, n_pad: int,
+                    nb_pad: int) -> "PaddedConeLayout":
+        if n_pad < lay.n:
+            raise ValueError(f"n_pad {n_pad} < layout dim {lay.n}")
+        if nb_pad < lay.num_blocks:
+            raise ValueError(
+                f"nb_pad {nb_pad} < layout blocks {lay.num_blocks}")
+        kind = np.full(n_pad, _ZERO, np.int32)
+        seg = np.zeros(n_pad, np.int32)
+        head = np.zeros(n_pad, np.int32)
+        kind[:lay.n] = lay.kind
+        seg[:lay.n] = lay.seg.astype(np.int32)
+        head[:lay.n] = lay.head
+        return cls((lay.spec,), kind, seg, head, n_pad, nb_pad,
+                   lay.has_blocks, lay.has_soc, lay.has_rsoc, lanes=False)
+
+    @classmethod
+    def stack(cls, specs, n_pad: int | None = None) -> "PaddedConeLayout":
+        """Stack per-lane ConeSpecs into one batched layout of shape
+        (B, n_pad) with suite-wide flags."""
+        lays = [ConeLayout(s) for s in specs]
+        n_pad = max(lay.n for lay in lays) if n_pad is None else n_pad
+        nb_pad = max(lay.num_blocks for lay in lays)
+        padded = [cls.from_layout(lay, n_pad, nb_pad) for lay in lays]
+        return cls(specs, np.stack([p.kind for p in padded]),
+                   np.stack([p.seg for p in padded]),
+                   np.stack([p.head for p in padded]), n_pad, nb_pad,
+                   any(lay.has_blocks for lay in lays),
+                   any(lay.has_soc for lay in lays),
+                   any(lay.has_rsoc for lay in lays), lanes=True)
+
+    def operands(self, device=None) -> ConeOperands:
+        """The `ConeOperands` on `device`: without a lane axis for
+        `from_layout`, with one (`code`/`blk` `(B, n_pad)`, block rows
+        `(B, nb_pad)`, the body table `(B, nb_pad, L)`) for `stack`."""
+        lanes = [_padded_operands_np(s, self.n, self.num_blocks)
+                 for s in self.specs]
+        L = max(lane[5].shape[1] for lane in lanes)
+        lanes = [lane[:5] + (np.pad(
+            lane[5], ((0, 0), (0, L - lane[5].shape[1])),
+            constant_values=self.n),) for lane in lanes]
+        fields = (zip(*lanes) if self.lanes else lanes[0])
+        return ConeOperands(*[
+            torch.from_numpy(np.ascontiguousarray(
+                np.stack(f) if self.lanes else f)).to(device)
+            for f in fields])
+
+    def interior_point(self, dtype=torch.float64, device=None) -> torch.Tensor:
+        """Cone-aware cold start (`source/abip.c:925-976`): SOC/RSOC
+        heads and nonneg elements start at 1, the rest (padding
+        included) at 0."""
+        one = (self.kind == _NONNEG) | (self.head > 0)
+        return torch.as_tensor(one.astype(np.float64), dtype=dtype,
+                               device=device)
+
+    def segment_mean_tie(self, e: torch.Tensor) -> torch.Tensor:
+        """See `ConeLayout.segment_mean_tie` (`qcp_config.c:194-212`)."""
+        if not self.has_blocks:
+            return e
+        return _mean_tie(e, self.operands(e.device))
+
+
+def layout_operands(layout, device=None) -> ConeOperands:
+    """The `ConeOperands` of a `ConeLayout` or `PaddedConeLayout`."""
+    if isinstance(layout, PaddedConeLayout):
+        return layout.operands(device)
+    return cone_operands(layout.spec, device)
+
+
+def _mean_tie(e, co: ConeOperands):
+    bl = Blocks.of(co)
+    sums = bl.head(e) + bl.head2(e) + bl.body_sum(e)
+    means = sums / co.length.to(e.dtype)
+    return torch.where(co.code >= E_SOC_H, bl.gather(means), e)
+
+
 class Blocks(NamedTuple):
     """Gathers over the blocks of `ConeOperands` for `(B, n)` rows: block
     scalars come out as `(B, nb)`, per-block values go back to the
-    elements."""
+    elements.  Operands shared by every lane index each row alike;
+    operands with a lane axis (a `PaddedConeLayout`'s) index row b by
+    lane b's own blocks (`torch.gather` along dim 1)."""
 
     start: torch.Tensor
     start2: torch.Tensor
@@ -263,23 +384,36 @@ class Blocks(NamedTuple):
         start = co.start.long()
         return Blocks(start, start + 1, co.soc > 0, co.blk.long(), co.body)
 
+    @property
+    def per_lane(self) -> bool:
+        return self.blk.dim() == 2
+
+    def _take(self, x, idx):
+        if self.per_lane:
+            return x.gather(1, idx)
+        return x[:, idx]
+
     def head(self, x):
-        return x[:, self.start]
+        return self._take(x, self.start)
 
     def head2(self, x):
         """RSOC second heads; 0 on SOC blocks (whose element after the
         head is a body element)."""
         return torch.where(self.soc, torch.zeros((), dtype=x.dtype,
                                                  device=x.device),
-                           x[:, self.start2])
+                           self._take(x, self.start2))
 
     def body_sum(self, x):
         ext = torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+        if self.per_lane:
+            B, nb, L = self.body.shape
+            return ext.gather(1, self.body.reshape(B, nb * L)).reshape(
+                B, nb, L).sum(-1)
         return ext[:, self.body].sum(-1)
 
     def gather(self, v):
         """Per-block `(B, nb)` values at each element of their block."""
-        return v[:, self.blk]
+        return self._take(v, self.blk)
 
     def scatter(self, h1, h2, sc, x, code):
         """Per element: block head -> h1, RSOC second head -> h2, body
@@ -416,14 +550,15 @@ def cone_barrier_prox(t: torch.Tensor, lam_e: torch.Tensor,
     `source/abip.c:326-413`) for all cone classes at once.
 
     t: `(B, n)`; lam_e: per-element lambda = mu/(beta*rho_i), `(B, n)`
-    or broadcastable to it.  `co` is the layout's `ConeOperands` on t's
+    or broadcastable to it; `layout` a `ConeLayout` or a
+    `PaddedConeLayout`.  `co` is the layout's `ConeOperands` on t's
     device: a caller that applies the prox on every iteration builds it
     once and passes it, so that no call copies the layout to the device;
     without it the call builds its own.
     """
     lam_e = torch.broadcast_to(lam_e, t.shape)
     if co is None:
-        co = cone_operands(layout.spec, t.device)
+        co = layout_operands(layout, t.device)
     code = co.code
     out = torch.where(code == E_NN, _nonneg_prox(t, lam_e), t)  # free: identity
     out = torch.where(code == E_ZERO, torch.zeros_like(out), out)

@@ -52,10 +52,23 @@ def limit_shared_memory(nbytes):
 @contextlib.contextmanager
 def ieee_f32():
     """Keep float32 matrix products out of TF32 for the duration; the
-    caller's setting is restored on exit."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    caller's setting is restored on exit.  It uses the API the caller
+    set TF32 with: PyTorch raises on a read of the legacy `allow_tf32`
+    once the caller set the other way (`fp32_precision`), so that one
+    is switched to "ieee" instead."""
+    matmul = torch.backends.cuda.matmul
+    precision = matmul.fp32_precision
+    try:
+        legacy = matmul.allow_tf32
+    except RuntimeError:
+        legacy = None
+    if legacy is None:
+        matmul.fp32_precision = "ieee"
+    else:
+        matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        if legacy is not None:
+            matmul.allow_tf32 = legacy
+        matmul.fp32_precision = precision

@@ -393,16 +393,10 @@ def solve_cbf(path: str, settings=None, relax_integrality=False,
     Returns `(sol, x_cbf, objective)`: the solver solution object, the
     primal in CBF variable order, and the objective in the instance's
     own sense (MAX instances report the maximized value, `obj_b`
-    included).  `method="device"`, the whole-solve device route through
-    `solve_qcp_device` and the steps engine, is not ported.
+    included).
     """
     from ..dispatch import solve
 
-    if overrides.get("method") == "device":
-        raise NotImplementedError(
-            "solve_cbf(method='device') runs solve_qcp_device and the conic "
-            "steps engine, which are not ported to abip_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 11)")
     emb = read_cbf(path, relax_integrality=relax_integrality)
     sol = solve(emb.A, emb.b, emb.c, cones=emb.cones, settings=settings,
                 device=device, **overrides)

@@ -155,9 +155,21 @@ class DenseSchurSolver:
 
     @property
     def Minv64(self):
-        """The explicit inverse the f32 kernels apply (mode "newton"):
-        G^-1 in the Woodbury form, S^-1 in the primal form."""
-        return self.Ginv64 if self.form == "woodbury" else self.Sinv64
+        """The explicit inverse the f32 kernels apply: G^-1 in the
+        Woodbury form, S^-1 in the primal form (mode "newton" keeps it;
+        mode "chol" computes it from the factor on each access)."""
+        if self.mode == "newton":
+            return self.Ginv64 if self.form == "woodbury" else self.Sinv64
+        L = self.cholG if self.form == "woodbury" else self.chol
+        return torch.cholesky_solve(_eye(L.shape[-1], L), L)
+
+    def take(self, idx) -> "DenseSchurSolver":
+        """The solver of the lanes `idx` (an index tensor; repeats
+        allowed): every per-lane tensor indexed along its lane axis."""
+        s = object.__new__(type(self))
+        for k, v in vars(self).items():
+            setattr(s, k, v[idx] if isinstance(v, torch.Tensor) else v)
+        return s
 
     def _inv_mixed(self, r):
         """The f32 inverse of S_hat with three refinement steps against
@@ -205,26 +217,32 @@ class DenseSchurSolver:
 
     @classmethod
     def from_numpy(cls, dss, device=None) -> "DenseSchurSolver":
-        """The reference's `DenseSchurSolver` (mode "newton", leaves as
-        numpy arrays, after `jax.device_get`; batched or one lane) as
-        the port's."""
-        if dss.mode != "newton":
+        """The reference's `DenseSchurSolver` (mode "newton" or "chol",
+        leaves as numpy arrays, after `jax.device_get`; batched or one
+        lane) as the port's."""
+        if dss.mode not in ("newton", "chol"):
             raise NotImplementedError(f"mode {dss.mode!r} is not converted")
+        one_lane = np.ndim(dss.A) == 2
 
-        def t(x, k):
+        def t(x):
             x = torch.from_numpy(np.array(x, dtype=np.float64)).to(device)
-            return x if x.dim() == k else x.unsqueeze(0)
+            return x.unsqueeze(0) if one_lane else x
 
         s = object.__new__(cls)
         s.mode, s.form, s.newton_steps = dss.mode, dss.form, dss.newton_steps
-        s.A = t(dss.A, 3)
-        s.Q = None if dss.Q is None else t(dss.Q, 2)
-        s.ry_inv = t(dss.ry_inv, 2)
+        s.A = t(dss.A)
+        s.Q = None if dss.Q is None else t(dss.Q)
+        s.ry_inv = t(dss.ry_inv)
         if s.form == "woodbury":
-            s.H_inv, s.G64, s.Ginv64 = (t(dss.H_inv, 2), t(dss.G64, 3),
-                                        t(dss.Ginv64, 3))
+            s.H_inv = t(dss.H_inv)
+            if s.mode == "newton":
+                s.G64, s.Ginv64 = t(dss.G64), t(dss.Ginv64)
+            else:
+                s.cholG = t(dss.cholG)
+        elif s.mode == "newton":
+            s.S64n, s.Sinv64 = t(dss.S64n), t(dss.Sinv64)
         else:
-            s.S64n, s.Sinv64 = t(dss.S64n, 3), t(dss.Sinv64, 3)
+            s.chol = t(dss.chol)
         return s
 
 

@@ -84,7 +84,20 @@ duration:
    `python -m abip_tpu_torch FILE.cbf --json`; each against its known
    optimum (the .mps against scipy's HiGHS) within 1e-5; then a profile
    of one dim-1020 solve (busy share, launches per ADMM iteration, top
-   device operations).
+   device operations);
+8. the rest of the batched conic driver, at dim-1020 as phase 4: sprint2
+   with straggler compaction (B=16 with compact_period 0 and 2048 in
+   turns, B=48 at the defaults, phase1="sprint" compacted), K3 held to
+   its plain version at the first compaction round's bucket (duplicated
+   lanes, the prepared setup sliced to it); the steps endgame and the
+   steps engine at B=16 (`tools/conic_bench.py`'s options, profiled over
+   its first barrier stages), precision "f64" and a full PSD Q at B=4;
+   `solve_qcp_device` at its defaults; `host_polish` of a k_cap-stopped
+   lane on the card; `solve_qcp_het_batch` over the conic_mini and
+   cblib_mini suites, as one padded batch and per instance; the LASSO and
+   SVM front doors (`solve_lasso`, `solve_lasso_batch` against a FISTA
+   oracle, `solve_svm` in both forms against each other).  Each part
+   prints its wall, ADMM counts and K2/K3/K4 launches.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -94,7 +107,8 @@ own, in the order this, PARENT, this, and prints their times.
 
 Each main path runs with its kernels' launch counts set to 0 just
 before it and read just after (K5 also on the MPS route of phase 7,
-`mps_route_launches`).  Exits nonzero, printing no result,
+`mps_route_launches`; K2, K3 and K4 on phase 8's paths,
+`batched_rest_launches`).  Exits nonzero, printing no result,
 without a card or on any failure.  The last three lines are the kernel summary
 (JSON, with each kernel's bound on this card), the card's name and power
 limit, and the result (JSON).
@@ -747,20 +761,17 @@ def ladder_parity(torch, dev, label, case, form=None):
     return err
 
 
-def delta_parity(torch, dev, label, case, plan=None):
-    """K3 against the plain chunk on the state phase 1 hands to the
-    endgame: T=64 with thresh=0 (equal t_done, the stated tolerance, the
-    accuracy ratio), then thresholds that stop the lanes mid-chunk
-    (`decisive_thresholds`; t_done within one probe), in the form of the
-    launch plan, or of `plan`.  Returns the largest |kernel - plain|."""
+def delta_parity_at(torch, dev, label, P, cones, st, plan=None):
+    """K3 against the plain chunk from the state `st` (`u_raw`, `v_raw`,
+    `mu` per lane) on the prepared setup `P`: T=64 with thresh=0, equal
+    t_done, the stated tolerance and the accuracy ratio against an f64
+    run, in the form of the launch plan or of `plan`.  Returns (the
+    anchor, the largest |kernel - plain|)."""
+    from abip_tpu_torch.cones import cone_operands
     from abip_tpu_torch.ops.conic_delta import (ConicDeltaAnchor,
                                                 _conic_delta_compute,
                                                 conic_delta_cuda)
-    from abip_tpu_torch.cones import cone_operands
 
-    cones, stacks, _ = conic_batch(**case)
-    P = conic_prepared(torch, cones, stacks, dev)
-    st = conic_phase1_state(torch, P, cones)
     co = cone_operands(cones, dev)
     nb = P.A.shape[0]
     print(f"K3 {label}: {k3_plan_line(torch, P, co, plan)}")
@@ -777,10 +788,30 @@ def delta_parity(torch, dev, label, case, plan=None):
     err = compare_conic(ker, plain, ("dy", "dx", "dvy", "dvx", "row"),
                         f"K3 {label}")
     kerr, perr = accuracy_vs_f64(ker, plain, exact, f"K3 {label}")
-    print(f"parity K3 {label} {P.dss.form} T=64: t_done equal; "
+    print(f"parity K3 {label} {P.dss.form} B={nb} T=64: t_done equal; "
           f"max|kernel-plain| {err:.3e} (stated tolerance: ok); vs f64 run: "
           f"kernel {kerr:.3e}, plain {perr:.3e} (kernel at most {ACC_RATIO}x: "
           f"ok)")
+    return anc, err
+
+
+def delta_parity(torch, dev, label, case, plan=None):
+    """K3 against the plain chunk on the state phase 1 hands to the
+    endgame: T=64 with thresh=0 (equal t_done, the stated tolerance, the
+    accuracy ratio), then thresholds that stop the lanes mid-chunk
+    (`decisive_thresholds`; t_done within one probe), in the form of the
+    launch plan, or of `plan`.  Returns the largest |kernel - plain|."""
+    from abip_tpu_torch.cones import cone_operands
+    from abip_tpu_torch.ops.conic_delta import (_conic_delta_compute,
+                                                conic_delta_cuda)
+
+    cones, stacks, _ = conic_batch(**case)
+    P = conic_prepared(torch, cones, stacks, dev)
+    st = conic_phase1_state(torch, P, cones)
+    co = cone_operands(cones, dev)
+    nb = P.A.shape[0]
+    anc, err = delta_parity_at(torch, dev, label, P, cones, st, plan)
+    run = dict(probe=PROBE, woodbury=P.dss.form == "woodbury")
     thresh, t_stop, drop = decisive_thresholds(
         torch, lambda tm: _conic_delta_compute(anc, co, tm, **run)[4][:, 2],
         nb, dev)
@@ -1980,6 +2011,454 @@ def phase_front_profile(torch, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the rest of the batched conic driver, then LASSO and SVM
+# ---------------------------------------------------------------------------
+
+# `tools/conic_bench.py:338-340`: the batched steps engine's options
+STEPS_KW = dict(engine="steps", eps=1e-6, precision="mixed", normalize=True,
+                rho_y=1e-3, max_admm=1_000_000, solver="inverse",
+                inner_crit_period=8)
+STEPS_PROFILE_IPM = 3         # barrier stages of the profiled steps solve
+# `benchmarks/ml_sweep.py` at scale 0.2: its (1000, 5000) LASSO cell and
+# `sweep_svm`'s (500, 50) SVM, seeded m + n as there
+LASSO_SHAPE = dict(m=200, n=1000)
+SVM_SHAPE = dict(m=500, n=50)
+# host_polish resumes at mu >= this: at dim-1020 a lane stopped by k_cap
+# (its mu already below eps) resumed at mu = eps runs one barrier stage
+# for over 20k ADMM iterations, in both packages on a CPU; from 1e-2 the
+# ladder finishes in ~500
+POLISH_MU_FLOOR = 1e-2
+# the suites' tolerance: at eps=1e-6 rand_lp_rows.cbf ends 9.8e-6 from its
+# optimum (the port on a CPU), too near the 1e-5 limit
+HET_EPS = 1e-7
+
+
+def counted(run, kernels):
+    """(seconds, result, launches) of `run()`, each kernel's launch count
+    set to 0 just before it and read just after."""
+    from abip_tpu_torch.utils.timing import wall_s
+
+    for k in kernels:
+        k.launches = 0
+    sec, res = wall_s(run)
+    return sec, res, [k.launches for k in kernels]
+
+
+def rest_line(label, sec, res, launches, card):
+    admm = res.admm_iters.cpu().numpy()
+    ipm = res.ipm_iters.cpu().numpy()
+    print(f"{label} [{card}]: wall {sec:.3f} s, ADMM total {int(admm.sum())} "
+          f"(max lane {int(admm.max())}), {admm.sum() / sec:.1f} ADMM it/s, "
+          f"IPM {int(ipm.min())}-{int(ipm.max())}, launches {launches}")
+
+
+class RoundLog:
+    """Within the block, records the compaction rounds of sprint2 (each
+    round's bucket size and shared cap) as they are launched."""
+
+    def __enter__(self):
+        from abip_tpu_torch.parallel import batched_qcp as bq
+
+        self.rounds, self._bq, self._solve = [], bq, bq._solve
+
+        def spy(*a, **kw):
+            if kw.get("k_cap") is not None:
+                self.rounds.append((kw["prepared"].A.shape[0], kw["k_cap"]))
+            return self._solve(*a, **kw)
+
+        bq._solve = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._bq._solve = self._solve
+
+
+def phase_compaction(torch, dev, card):
+    """Straggler compaction: a fresh dim-1020 B=16 batch (after an
+    untimed solve of other seeds) with compact_period 0, 2048 and 256 in
+    turns, three solves each, the medians answering whether compaction
+    pays at B=16; B=48 at the defaults (compaction on above B=32);
+    phase1="sprint" compacted at B=16.  Each against the known optima,
+    K2/K3/K4 counted.  Returns {kernel: {path: launches}}."""
+    from abip_tpu_torch import solve_qcp_batch
+    from abip_tpu_torch.ops.conic_delta import conic_delta_cuda
+    from abip_tpu_torch.ops.conic_dr import dr_sprint_cuda, ladder_cuda
+
+    kernels = (ladder_cuda, conic_delta_cuda, dr_sprint_cuda)
+    out = {"K2": {}, "K3": {}, "K4": {}}
+
+    def note(path, launches):
+        for name, n in zip(("K2", "K3", "K4"), launches):
+            if n:
+                out[name][path] = n
+
+    cones, stacks, _ = conic_batch(8900)
+    solve_qcp_batch(*stacks, cones=cones, device=dev,
+                    **dict(CONIC_KW, compact_period=256))
+    cones, stacks, stars = conic_batch(8920)
+    walls = {0: [], 2048: [], 256: []}
+    for cp in (0, 2048, 256, 256, 2048, 0, 0, 2048, 256):
+        with RoundLog() as log:
+            sec, res, launches = counted(lambda: solve_qcp_batch(
+                *stacks, cones=cones, device=dev,
+                **dict(CONIC_KW, compact_period=cp)), kernels)
+        walls[cp].append(sec)
+        label = f"sprint2 B=16 dim-1020 compact_period={cp}"
+        conic_vs_optima(res, stars, label)
+        if len(walls[cp]) == 1:
+            rest_line(label, sec, res, launches, card)
+            if cp:
+                print(f"{label}: rounds (bucket, shared cap) {log.rounds}")
+                note(f"sprint2 compact_period={cp} B=16", launches)
+    print(f"compaction at B=16 dim-1020 [{card}]: median wall by "
+          "compact_period " + ", ".join(
+              f"{cp}: {sorted(w)[1]:.4f} s {[round(t, 4) for t in w]}"
+              for cp, w in walls.items()))
+
+    cones, stacks, stars = conic_batch(8940, count=48)
+    with RoundLog() as log:
+        sec, res, launches = counted(lambda: solve_qcp_batch(
+            *stacks, cones=cones, device=dev, **CONIC_KW), kernels)
+    label = "sprint2 B=48 dim-1020 defaults"
+    rest_line(label, sec, res, launches, card)
+    print(f"{label}: rounds (bucket, shared cap) {log.rounds}")
+    conic_vs_optima(res, stars, label)
+    if not log.rounds:
+        raise AssertionError(f"{label}: no compaction round ran")
+    note("sprint2 B=48 defaults", launches)
+
+    cones, stacks, stars = conic_batch(8970)
+    sec, res, launches = counted(lambda: solve_qcp_batch(
+        *stacks, cones=cones, device=dev,
+        **dict(CONIC_KW, phase1="sprint", compact_period=2048)), kernels)
+    label = "sprint2 phase1=sprint B=16 dim-1020 compact_period=2048"
+    rest_line(label, sec, res, launches, card)
+    conic_vs_optima(res, stars, label)
+    note("phase1=sprint compacted B=16", launches)
+    for name, paths in out.items():
+        if not sum(paths.values()):
+            raise AssertionError(f"compaction paths launched {name} no time")
+    return out
+
+
+def phase_round_parity(torch, dev):
+    """K3 at the shapes a compaction round gives it: the B=48 batch's
+    phase-1 state, its unfinished lanes gathered into the round's
+    power-of-two bucket (copies of active lanes fill it) with the
+    prepared setup sliced to it, as `_solve_qcp_batch_twophase` does."""
+    from types import SimpleNamespace
+
+    from abip_tpu_torch.parallel.batched import _bucket
+
+    cones, stacks, _ = conic_batch(8940, count=48)
+    P = conic_prepared(torch, cones, stacks, dev)
+    st = conic_phase1_state(torch, P, cones)
+    active = np.flatnonzero(st.status.cpu().numpy() == 0)
+    nb = _bucket(active.size)
+    idx = torch.as_tensor(active[np.arange(nb) % active.size], device=dev)
+    cap = min(int(st.admm_iters[idx].max()) + 2048, CONIC_KW["max_admm"])
+    print(f"K3 first compaction round of B=48: {active.size} active lanes "
+          f"in a bucket of {nb} ({nb - active.size} copies), shared cap "
+          f"{cap}")
+    _, err = delta_parity_at(
+        torch, dev, f"compaction round B={nb}", P.take(idx), cones,
+        SimpleNamespace(u_raw=st.u_raw[idx], v_raw=st.v_raw[idx],
+                        mu=st.mu[idx]))
+    return err
+
+
+def phase_steps(torch, dev, card):
+    """The steps endgame (sprint2, K2 then the anchored steps engine) and
+    the steps engine itself at B=16 with `tools/conic_bench.py`'s options,
+    with a device-only profile of its first STEPS_PROFILE_IPM barrier
+    stages; precision "f64" at B=4; a full PSD Q at B=4 (mixed, the
+    primal form).  Returns K2's launches on the steps endgame."""
+    from abip_tpu_torch import ConeSpec, solve_qcp_batch
+    from abip_tpu_torch.ops.conic_delta import conic_delta_cuda
+    from abip_tpu_torch.ops.conic_dr import ladder_cuda
+
+    cones, stacks, stars = conic_batch(8990)
+    sec, res, (l2, l3) = counted(lambda: solve_qcp_batch(
+        *stacks, cones=cones, device=dev,
+        **dict(CONIC_KW, endgame="steps")), (ladder_cuda, conic_delta_cuda))
+    label = "sprint2 endgame=steps B=16 dim-1020"
+    rest_line(label, sec, res, [l2, l3], card)
+    conic_vs_optima(res, stars, label)
+    if l2 <= 0 or l3:
+        raise AssertionError(f"{label}: K2 {l2}x, K3 {l3}x")
+
+    cones, stacks, stars = conic_batch(9010)
+    sec, res = counted(lambda: solve_qcp_batch(
+        *stacks[:3], cones=cones, device=dev, **STEPS_KW), ())[:2]
+    label = "steps engine mixed B=16 dim-1020"
+    rest_line(label, sec, res, [], card)
+    conic_vs_optima(res, stars, label)
+    out = {}
+
+    def run():
+        out["res"] = solve_qcp_batch(*stacks[:3], cones=cones, device=dev,
+                                     **dict(STEPS_KW,
+                                            max_ipm=STEPS_PROFILE_IPM))
+
+    prof = profile_solve(torch, run, {
+        "gemv/gemm": ("gemv", "gemm", "Gemv", "Gemm"),
+        "reductions": ("reduce", "Reduce", "norm")},
+        f"steps engine B=16 dim-1020, first {STEPS_PROFILE_IPM} barrier "
+        "stages")
+    if prof:
+        it = int(out["res"].admm_iters.max())
+        print(f"profile steps engine: {prof['launches']} device launches over "
+              f"{it} lockstep ADMM iterations = "
+              f"{prof['launches'] / max(1, it):.1f} per iteration; "
+              f"{1e3 * prof['plain_sec'] / max(1, it):.3f} ms per iteration "
+              "unprofiled")
+
+    cones, stacks, stars = conic_batch(9030, count=4)
+    sec, res = counted(lambda: solve_qcp_batch(
+        *stacks[:3], cones=cones, device=dev,
+        **dict(STEPS_KW, precision="f64")), ())[:2]
+    label = "steps engine f64 B=4 dim-1020"
+    rest_line(label, sec, res, [], card)
+    conic_vs_optima(res, stars, label)
+
+    cones = ConeSpec(**CONIC_SPEC)
+    data = [randqcp("q", CONIC_M, cones, 9040 + i) for i in range(4)]
+    As, bs, cs, Qs = (np.stack([d[k] for d in data]) for k in (1, 2, 3, 4))
+    sec, res = counted(lambda: solve_qcp_batch(
+        As, bs, cs, Qs, cones=cones, device=dev, **STEPS_KW), ())[:2]
+    label = "steps engine mixed full PSD Q B=4 dim-1020"
+    rest_line(label, sec, res, [], card)
+    conic_vs_optima(res, np.array([d[-1] for d in data]), label)
+    return l2
+
+
+def phase_device_polish(torch, dev, card):
+    """`solve_qcp_device` on one fresh dim-1020 instance at its defaults
+    (cadence "cond", f64, inner_crit_period=1, no equilibration), and
+    `host_polish` on the card of a lane the steps engine left at
+    k_cap=100, resumed at mu >= POLISH_MU_FLOOR."""
+    import time
+
+    from abip_tpu_torch import ConeSpec, solve_qcp_batch
+    from abip_tpu_torch.parallel import solve_qcp_device
+    from abip_tpu_torch.parallel.batched_qcp import host_polish
+    from abip_tpu_torch.utils.timing import wall_s
+
+    cones = ConeSpec(**CONIC_SPEC)
+    _, A, b, c, _, star = randcone("d", CONIC_M, cones, 9050)
+    sec, r = wall_s(lambda: solve_qcp_device(A, b, c, cones=cones,
+                                             eps=FRONT_EPS, device=dev))
+    rel = abs(float(r.pobj) - star) / max(1.0, abs(star))
+    print(f"solve_qcp_device dim-1020 defaults [{card}]: status "
+          f"{int(r.status)}, IPM {int(r.ipm_iters)}, ADMM "
+          f"{int(r.admm_iters)}, wall {sec:.3f} s, "
+          f"{int(r.admm_iters) / sec:.1f} ADMM it/s, relative gap "
+          f"{rel:.3e} (limit 1e-5)")
+    if int(r.status) != 1 or rel > 1e-5 or not torch.isfinite(r.x).all():
+        raise AssertionError("solve_qcp_device: off")
+
+    _, A, b, c, _, star = randcone("p", CONIC_M, cones, 9060)
+    res = solve_qcp_batch(A[None], b[None], c[None], cones=cones, device=dev,
+                          k_cap=100, **STEPS_KW)
+    if res.status.tolist() != [0]:
+        raise AssertionError(f"k_cap=100 left status {res.status.tolist()}")
+    t0 = time.perf_counter()
+    sol = host_polish(A, b, c, cones, res, lane=0, eps=FRONT_EPS,
+                      mu_floor=POLISH_MU_FLOOR, device=dev)
+    front_check(f"host_polish on the card of a lane capped at ADMM "
+                f"{int(res.admm_iters[0])}", sol, star,
+                time.perf_counter() - t0)
+
+
+def _status_name(code):
+    from abip_tpu_torch.settings import Status
+
+    return Status.name(int(code))
+
+
+def phase_het(torch, dev, card):
+    """`solve_qcp_het_batch` over the committed conic_mini (.mat) and
+    cblib_mini (.cbf) suites, each as one padded batch and through the
+    per-instance pool: every lane against its recorded optimum (a .mat
+    without one held to `sedumi_certificate`, a .cbf without one to its
+    .mat twin's objective)."""
+    import glob
+    from types import SimpleNamespace
+
+    from scipy.io import loadmat
+
+    from abip_tpu_torch.io.cbf import read_cbf
+    from abip_tpu_torch.io.sedumi import load_sedumi_mat
+    from abip_tpu_torch.parallel import solve_qcp_het_batch
+    from abip_tpu_torch.utils.timing import wall_s
+
+    def base(p):
+        return os.path.basename(p).rsplit(".", 1)[0]
+
+    mats = sorted(glob.glob(os.path.join(SUITES, "conic_mini", "*.mat")))
+    cbfs = sorted(glob.glob(os.path.join(SUITES, "cblib_mini", "*.cbf")))
+    with open(os.path.join(SUITES, "cblib_mini", "optima.json")) as f:
+        optima = json.load(f)
+    mat_probs, perms, mat_stars = [], [], []
+    for p in mats:
+        A, b, c, cones, perm = load_sedumi_mat(p)
+        mat_probs.append((np.asarray(A), b, c, None, cones))
+        perms.append(perm)
+        star = loadmat(p, simplify_cells=True).get("pobj_star")
+        mat_stars.append(None if star is None
+                         else float(np.asarray(star).ravel()[0]))
+    embs = [read_cbf(p) for p in cbfs]
+    cbf_probs = [(e.A, e.b, e.c, None, e.cones) for e in embs]
+    mat_pobj = {}
+    kw = dict(eps=HET_EPS, inner_crit_period=16, device=dev)
+
+    def summary(label, rels):
+        print(f"{label}: {len(rels)} of {len(rels)} Solved, max relative "
+              f"objective gap {max(rels):.3e} (limit 1e-5)")
+
+    for route in ("batch", "pool"):
+        sec, res = wall_s(lambda: solve_qcp_het_batch(mat_probs, route=route,
+                                                      **kw))
+        label = f"het batch conic_mini (12 .mat) route={route}"
+        rest_line(label, sec, res, [], card)
+        rels = []
+        for k, p in enumerate(mats):
+            m, n = mat_probs[k][0].shape
+            inv = np.argsort(perms[k])
+            sol = SimpleNamespace(
+                x=res.x[k, :n].cpu().numpy()[inv],
+                y=res.y[k, :m].cpu().numpy(),
+                s=res.s[k, :n].cpu().numpy()[inv],
+                status_name=_status_name(res.status[k]),
+                ipm_iters=int(res.ipm_iters[k]),
+                admm_iters=int(res.admm_iters[k]),
+                pobj=float(res.pobj[k]))
+            label = f"het {route} {base(p)}.mat"
+            mat_pobj[base(p)] = sol.pobj
+            if mat_stars[k] is None:
+                sedumi_certificate(p, sol, label)
+            else:
+                rels.append(het_check(label, sol.status_name, sol.pobj,
+                                      mat_stars[k]))
+        summary(f"{label} with a recorded optimum", rels)
+        sec, res = wall_s(lambda: solve_qcp_het_batch(cbf_probs, route=route,
+                                                      **kw))
+        label = f"het batch cblib_mini (12 .cbf) route={route}"
+        rest_line(label, sec, res, [], card)
+        rels = []
+        for k, p in enumerate(cbfs):
+            name = base(p)
+            star = optima.get(name)
+            if star is None:
+                twin = mat_pobj[name.replace("_rows", "").replace("_max", "")]
+                star = -twin if name.endswith("_max") else twin
+            rels.append(het_check(f"het {route} {name}.cbf",
+                                  _status_name(res.status[k]),
+                                  embs[k].objective(float(res.pobj[k])),
+                                  star))
+        summary(f"{label} (instance sense; a missing optimum from the .mat "
+                "twin)", rels)
+
+
+def het_check(label, status_name, obj, star):
+    rel = abs(obj - star) / max(1.0, abs(star))
+    if status_name != "Solved" or not np.isfinite(obj) or rel > 1e-5:
+        raise AssertionError(f"{label}: {status_name}, objective {obj!r} vs "
+                             f"{star!r} ({rel:.3e})")
+    return rel
+
+
+def _spec_norm_sq(X, iters=60, seed=0):
+    """`benchmarks/ml_sweep._spec_norm_sq`: the largest singular value
+    squared by power iteration, with a 2% cushion."""
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(X.shape[1])
+    v /= np.linalg.norm(v)
+    s = 0.0
+    for _ in range(iters):
+        w = X.T @ (X @ v)
+        s = np.linalg.norm(w)
+        v = w / max(s, 1e-30)
+    return s * 1.02
+
+
+def ista_lasso(X, y, lam, iters=5000, tol=1e-10):
+    """A copy of `benchmarks/ml_sweep.ista_lasso` (FISTA) as the LASSO
+    oracle: min 1/2||Xw - y||^2 + lam ||w||_1."""
+    L = _spec_norm_sq(X)
+    w = np.zeros(X.shape[1])
+    z = w.copy()
+    t = 1.0
+    obj_prev = np.inf
+    for _ in range(iters):
+        g = X.T @ (X @ z - y)
+        w_new = z - g / L
+        w_new = np.sign(w_new) * np.maximum(np.abs(w_new) - lam / L, 0.0)
+        t_new = 0.5 * (1 + np.sqrt(1 + 4 * t * t))
+        z = w_new + (t - 1) / t_new * (w_new - w)
+        w, t = w_new, t_new
+        obj = 0.5 * np.linalg.norm(X @ w - y) ** 2 + lam * np.abs(w).sum()
+        if abs(obj_prev - obj) < tol * max(1.0, abs(obj)):
+            break
+        obj_prev = obj
+    return w, obj
+
+
+def phase_ml(torch, dev, card):
+    """The LASSO and SVM front doors on the card: `solve_lasso` (the host
+    conic driver) and `solve_lasso_batch` (a lambda grid of 8 as one
+    steps-engine batch at its defaults) on `lasso_instance(m=200,
+    n=1000)`, each against the FISTA oracle within 1e-5; `solve_svm` in
+    both forms on `svm_instance(m=500, n=50)`, the two objectives within
+    1e-5 of each other."""
+    import time
+
+    from benchmarks.generate import lasso_instance, svm_instance
+
+    from abip_tpu_torch.problems import (solve_lasso, solve_lasso_batch,
+                                         solve_svm)
+    from abip_tpu_torch.utils.timing import wall_s
+
+    m, n = LASSO_SHAPE["m"], LASSO_SHAPE["n"]
+    X, y, lam = lasso_instance(m=m, n=n, seed=m + n)
+    star = ista_lasso(X, y, lam)[1]
+    t0 = time.perf_counter()
+    _, obj, sol = solve_lasso(X, y, lam, eps=FRONT_EPS, device=dev)
+    rel = het_check("solve_lasso", sol.status_name, obj, star)
+    print(f"solve_lasso m={m} n={n} [{card}]: {sol.status_name}, IPM "
+          f"{sol.ipm_iters}, ADMM {sol.admm_iters}, wall "
+          f"{time.perf_counter() - t0:.3f} s, objective {obj:.10g} vs FISTA "
+          f"{star:.10g}, relative gap {rel:.3e} (limit 1e-5)")
+    lams = lam * np.geomspace(0.5, 2.0, 8)
+    stars = np.array([ista_lasso(X, y, v)[1] for v in lams])
+    sec, (W, objs, res) = wall_s(lambda: solve_lasso_batch(
+        np.stack([X] * 8), np.stack([y] * 8), lams, eps=FRONT_EPS,
+        device=dev))
+    rest_line(f"solve_lasso_batch B=8 m={m} n={n} (a lambda grid)", sec, res,
+              [], card)
+    for k in range(8):
+        het_check(f"solve_lasso_batch lane {k}",
+                  _status_name(res.status[k]), objs[k], stars[k])
+    print(f"solve_lasso_batch vs FISTA: max relative gap "
+          f"{(np.abs(objs - stars) / np.maximum(1, np.abs(stars))).max():.3e}"
+          " (limit 1e-5)")
+    Xs, ys = svm_instance(m=SVM_SHAPE["m"], n=SVM_SHAPE["n"],
+                          seed=SVM_SHAPE["m"] + SVM_SHAPE["n"])
+    objs = {}
+    for form in ("qp", "socp"):
+        t0 = time.perf_counter()
+        _, _, objs[form], sol = solve_svm(Xs, ys, 1.0, form=form,
+                                          eps=FRONT_EPS, device=dev)
+        print(f"solve_svm {form} m={SVM_SHAPE['m']} n={SVM_SHAPE['n']} "
+              f"[{card}]: {sol.status_name}, IPM {sol.ipm_iters}, ADMM "
+              f"{sol.admm_iters}, wall {time.perf_counter() - t0:.3f} s, "
+              f"objective {objs[form]:.10g}")
+        if sol.status_name != "Solved":
+            raise AssertionError(f"solve_svm {form}: {sol.status_name}")
+    het_check("solve_svm QP vs SOCP", "Solved", objs["qp"], objs["socp"])
+
+
+# ---------------------------------------------------------------------------
 # the host LP driver and K5
 # ---------------------------------------------------------------------------
 
@@ -2465,6 +2944,18 @@ def main():
     k5_mps = phase("front door files", phase_front_files, torch, dev)
     phase("front door profile", phase_front_profile, torch, dev)
     print(f"phase 7 (front door): {time.perf_counter() - t7:.1f} s")
+
+    t8 = time.perf_counter()
+    rest = phase("compaction", phase_compaction, torch, dev, card)
+    k3_round_err = phase("K3 at a compaction round", phase_round_parity,
+                         torch, dev)
+    rest["K2"]["sprint2 endgame=steps B=16"] = phase(
+        "steps engine", phase_steps, torch, dev, card)
+    phase("solve_qcp_device and host_polish", phase_device_polish, torch, dev,
+          card)
+    phase("heterogeneous batches", phase_het, torch, dev, card)
+    phase("LASSO and SVM", phase_ml, torch, dev, card)
+    print(f"phase 8 (the batched conic rest): {time.perf_counter() - t8:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, err, times, library=None,
@@ -2481,11 +2972,15 @@ def main():
         entry("delta_cluster_kernel", "admm_delta.cu",
               "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1),
         entry("conic_ladder_cluster_kernel", "conic_ladder.cu",
-              "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2),
+              "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2,
+              batched_rest_launches=rest["K2"]),
         entry("conic_delta_cluster_kernel", "conic_delta.cu",
-              "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3),
+              "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3,
+              batched_rest_launches=rest["K3"],
+              compaction_round_max_abs_err=k3_round_err),
         entry("conic_sprint_cluster_kernel", "conic_sprint.cu",
-              "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4),
+              "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4,
+              batched_rest_launches=rest["K4"]),
         entry("csr_spmv_kernel", "bcsr_spmv.cu",
               "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,
               (k5[0], k5[1], k5[3], k5[4]), library=k5[2],

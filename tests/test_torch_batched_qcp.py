@@ -127,39 +127,6 @@ def test_cold_delta_start_is_refused():
                         eps=1e-4, cadence="chunk", precision="mixed")
 
 
-@pytest.mark.parametrize("opts", [
-    dict(engine="steps"), dict(endgame="steps"), dict(compact_period=64),
-    dict(precision="f64"), dict(full_q=True)])
-def test_unported_options_raise(opts):
-    """Options of paths this port does not run raise and name their
-    ROADMAP item; none falls back to another path."""
-    spec, (As, bs, cs), _ = _batch("woodbury", 2)
-    kw = dict(KW, **opts)
-    Q = None
-    if kw.pop("full_q", False):
-        Q = np.stack([np.eye(As.shape[2])] * 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        solve_qcp_batch(As, bs, cs, Q, device="cpu", cones=ConeSpec(**spec),
-                        **kw)
-
-
-@pytest.mark.parametrize("fn", [bq.solve_qcp_het_batch, bq.host_polish])
-def test_unported_entry_points_raise(fn):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        fn()
-
-
-def test_defaults_above_b32_need_compaction():
-    """The reference turns straggler compaction on above B=32; the port
-    refuses rather than run another path."""
-    spec, (As, bs, cs), _ = _batch("woodbury", 1)
-    rep = lambda x: np.repeat(x, 33, axis=0)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="compact_period"):
-        solve_qcp_batch(rep(As), rep(bs), rep(cs), device="cpu",
-                        cones=ConeSpec(**spec),
-                        **KW)
-
-
 def test_importing_the_port_leaves_jax_out():
     """`abip_tpu_torch` and its conic modules import neither JAX nor the
     JAX package."""
@@ -169,7 +136,9 @@ def test_importing_the_port_leaves_jax_out():
             "abip_tpu_torch.ops.conic_dr, abip_tpu_torch.ops.conic_delta, "
             "abip_tpu_torch.ops.build, abip_tpu_torch.parallel.batched_qcp, "
             "abip_tpu_torch.ops.admm_sprint, abip_tpu_torch.ops.prox, "
-            "abip_tpu_torch.parallel.batched; "
+            "abip_tpu_torch.parallel.batched, abip_tpu_torch.parallel, "
+            "abip_tpu_torch.problems, abip_tpu_torch.problems.lasso, "
+            "abip_tpu_torch.problems.svm; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('abip_tpu.') or "
             "m == 'abip_tpu']; print(bad); sys.exit(1 if bad else 0)")

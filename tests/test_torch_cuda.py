@@ -25,6 +25,7 @@ against the port on the CPU, and the CLI's file functions on the card.
 """
 import functools
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -647,3 +648,128 @@ def test_solves_with_every_kernel_spilled(cuda_device):
             assert res.status.tolist() == [1, 1, 1, 1]
             assert abs(res.pobj.cpu().numpy() - stars).max() < 2e-5
     assert all(k.launches > 0 for k in kernels), [k.launches for k in kernels]
+
+
+STEPS_KW = dict(engine="steps", eps=1e-6, normalize=True, rho_y=1e-3,
+                inner_crit_period=8, max_admm=1_000_000)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["f64", "mixed"])
+@pytest.mark.parametrize("cadence", ["chunk", "cond"])
+def test_steps_engine_on_card_matches_cpu(cuda_device, precision, cadence):
+    """The batched steps engine on the card (its default device) against
+    the same call on the CPU: equal statuses, objectives within 1e-6
+    relative, every lane within 2e-5 of its known optimum."""
+    from abip_tpu_torch import solve_qcp_batch
+
+    cones, stacks, stars = chip_smoke.conic_batch(
+        308, count=4, spec=chip_smoke.SMALL_SPEC, m=7)
+    kw = dict(STEPS_KW, precision=precision, cadence=cadence)
+    card = solve_qcp_batch(*stacks[:3], cones=cones, **kw)
+    cpu = solve_qcp_batch(*stacks[:3], cones=cones, device="cpu", **kw)
+    assert card.x.is_cuda
+    assert card.status.tolist() == cpu.status.tolist() == [1] * 4
+    pc = cpu.pobj.numpy()
+    assert (abs(card.pobj.cpu().numpy() - pc)
+            <= 1e-6 * np.maximum(1.0, abs(pc))).all()
+    assert abs(card.pobj.cpu().numpy() - stars).max() < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("api", ["legacy", "fp32_precision"])
+def test_mixed_steps_products_stay_ieee_f32(cuda_device, monkeypatch, api):
+    """With TF32 switched on by the caller (through either of PyTorch's
+    APIs), every f32 product of the mixed steps engine runs with TF32
+    off (`device.ieee_f32`), and the caller's setting is restored."""
+    from abip_tpu_torch import solve_qcp_batch
+    from abip_tpu_torch.parallel import batched_qcp
+
+    cones, stacks, stars = chip_smoke.conic_batch(
+        308, count=2, spec=chip_smoke.SMALL_SPEC, m=7)
+    matmul = torch.backends.cuda.matmul
+    seen = []
+    mv = batched_qcp._mv
+
+    def spy(M, x):
+        if M.dtype == torch.float32:
+            seen.append(matmul.fp32_precision)
+        return mv(M, x)
+
+    monkeypatch.setattr(batched_qcp, "_mv", spy)
+    try:
+        if api == "legacy":
+            matmul.allow_tf32 = True
+        else:
+            matmul.fp32_precision = "tf32"
+        res = solve_qcp_batch(*stacks[:3], cones=cones,
+                              **dict(STEPS_KW, precision="mixed"))
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.allow_tf32 = False
+        matmul.fp32_precision = "none"
+    assert seen and set(seen) == {"ieee"}, (len(seen), set(seen))
+    assert res.status.tolist() == [1, 1]
+    assert abs(res.pobj.cpu().numpy() - stars).max() < 2e-5
+
+
+@pytest.mark.cuda
+def test_compacted_sprint2_on_card(cuda_device):
+    """sprint2 with compact_period=64 on the card: phase 1 in K2, the
+    compaction rounds' endgame in K3 on power-of-two buckets; every lane
+    within 2e-5 of its known optimum, as the uncompacted batch."""
+    from abip_tpu_torch import solve_qcp_batch
+    from abip_tpu_torch.ops.conic_dr import ladder_cuda
+
+    cones, stacks, stars = chip_smoke.conic_batch(
+        308, count=5, spec=chip_smoke.SMALL_SPEC, m=7)
+    ladder_cuda.launches = 0
+    conic_delta.conic_delta_cuda.launches = 0
+    res = solve_qcp_batch(*stacks[:3], cones=cones,
+                          **dict(chip_smoke.CONIC_KW, compact_period=64))
+    assert ladder_cuda.launches > 0
+    assert conic_delta.conic_delta_cuda.launches > 0
+    assert res.status.tolist() == [1] * 5
+    assert abs(res.pobj.cpu().numpy() - stars).max() < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["batch", "pool"])
+def test_het_batch_on_card(cuda_device, route):
+    """Three cone structures of different shapes as one batch (padded
+    layout) or per instance on the card, against the CPU."""
+    from abip_tpu_torch import ConeSpec
+    from abip_tpu_torch.parallel import solve_qcp_het_batch
+
+    specs = (ConeSpec(soc=(5,), rsoc=(4,), nonneg=10),
+             ConeSpec(soc=(6, 3), nonneg=8), ConeSpec(rsoc=(5,), nonneg=12))
+    probs, stars = [], []
+    for i, (spec, m) in enumerate(zip(specs, (7, 8, 6))):
+        _, A, b, c, _, star = chip_smoke.randcone("h", m, spec, 500 + i)
+        probs.append((A, b, c, None, spec))
+        stars.append(star)
+    kw = dict(eps=1e-6, inner_crit_period=8, route=route)
+    card = solve_qcp_het_batch(probs, **kw)
+    cpu = solve_qcp_het_batch(probs, device="cpu", **kw)
+    assert card.x.is_cuda
+    assert card.status.tolist() == cpu.status.tolist() == [1, 1, 1]
+    assert abs(card.pobj.cpu().numpy() - cpu.pobj.numpy()).max() < 1e-6
+    assert abs(card.pobj.cpu().numpy() - np.array(stars)).max() < 2e-5
+
+
+@pytest.mark.cuda
+def test_host_polish_on_card(cuda_device):
+    """A lane stopped by k_cap, polished in f64 by the host conic driver
+    on the card (its default device): Solved at the known optimum."""
+    from abip_tpu_torch import solve_qcp_batch
+    from abip_tpu_torch.parallel.batched_qcp import host_polish
+
+    cones, stacks, stars = chip_smoke.conic_batch(
+        308, count=2, spec=chip_smoke.SMALL_SPEC, m=7)
+    res = solve_qcp_batch(*stacks[:3], cones=cones, k_cap=40,
+                          **dict(STEPS_KW, precision="f64"))
+    assert res.status.tolist() == [0, 0]
+    A, b, c = (x[1] for x in stacks[:3])
+    sol = host_polish(A, b, c, cones, res, lane=1, eps=1e-6)
+    assert sol.status_name == "Solved"
+    assert abs(sol.pobj - stars[1]) <= 1e-5 * max(1.0, abs(stars[1]))
