@@ -3,11 +3,15 @@
 A port of `abip_tpu` to PyTorch: the host LP driver (`solve_lp`, one LP
 on a dense or scipy sparse A), the host conic driver (`solve_qcp`,
 `ConicWorkspace`: one SOCP or QP), the readers of MPS, CBF and SeDuMi
-files (`io`, and `python -m abip_tpu_torch FILE`), the batched LP
-solver with its delta, steps, sprint and two-phase sprint2 engines
-(`solve_lp_batch`), and the
-two-phase batched conic path (`solve_qcp_batch`: barrier ladder or
-one-stage sprints, then the anchored-delta endgame).  Their hot loops
+files (`io`, and `python -m abip_tpu_torch FILE`, with `--crossover`),
+the batched LP solver with its delta, steps, sprint and two-phase
+sprint2 engines (`solve_lp_batch`), the two-phase batched conic path
+(`solve_qcp_batch`: barrier ladder or one-stage sprints, then the
+anchored-delta endgame), the same-pattern sparse family driver, the
+lane-swap stream and the thread pool (`parallel`), restarted PDHG
+(`solve_lp_pdhg`, `solve_qcp_pdhg`), crossover to a vertex, and the
+differentiable solution maps (`solve_lp_grad` and its kin, as
+`torch.autograd` functions).  Their hot loops
 run hand-written CUDA C++ kernels for Hopper (`csrc/bcsr_spmv.cu`,
 `csrc/admm_delta.cu`, `csrc/admm_sprint.cu`, `csrc/conic_ladder.cu`,
 `csrc/conic_sprint.cu`, `csrc/conic_delta.cu`, and `csrc/barrier_step.cu`
@@ -39,18 +43,22 @@ Quick start::
 """
 from .settings import Settings, Status
 from .cones import ConeSpec
-from .dispatch import solve
+from .dispatch import solve, solve_general
 from .lp import LPSolution, LPWorkspace, solve_lp
 from .qcp import ConicSolution, ConicWorkspace, conic_defaults, solve_qcp
 from .problem import LinearOperator
 from .parallel.batched import solve_lp_batch
 from .parallel.batched_qcp import solve_qcp_batch
 from .problems import solve_lasso, solve_svm
+from .pdhg import solve_lp_pdhg, solve_qcp_pdhg
+from .diff import (solve_lp_grad, solve_qcp_grad, solve_lasso_grad,
+                   solve_svm_grad)
 
 __version__ = "0.3.0"
 
 __all__ = ["ConeSpec", "ConicSolution", "ConicWorkspace", "LinearOperator",
            "LPSolution", "LPWorkspace", "Settings", "Status",
-           "conic_defaults", "solve", "solve_lasso", "solve_lp",
-           "solve_lp_batch", "solve_qcp", "solve_qcp_batch", "solve_svm",
-           "__version__"]
+           "conic_defaults", "solve", "solve_general", "solve_lasso",
+           "solve_lasso_grad", "solve_lp", "solve_lp_batch", "solve_lp_grad",
+           "solve_lp_pdhg", "solve_qcp", "solve_qcp_batch", "solve_qcp_grad",
+           "solve_qcp_pdhg", "solve_svm", "solve_svm_grad", "__version__"]

@@ -25,10 +25,6 @@ def main(argv=None):
                     help="polish an MPS solve to a certified vertex")
     ap.add_argument("--json", action="store_true", help="print one JSON line")
     args = ap.parse_args(argv)
-    if args.crossover:
-        raise NotImplementedError(
-            "--crossover needs crossover.py, which is not ported to "
-            "abip_tpu_torch yet (ROADMAP.md queue 1, item 17)")
     device = "cpu" if args.cpu else None
 
     user_pobj = None   # instance-sense objective, when it differs from pobj
@@ -48,8 +44,14 @@ def main(argv=None):
     else:
         from .io.presolve import solve_mps
 
-        sol, _std = solve_mps(args.path, eps=args.eps, verbose=args.verbose,
-                              device=device)
+        sol, std = solve_mps(args.path, eps=args.eps, verbose=args.verbose,
+                             device=device)
+        if args.crossover and sol.status_name.startswith("Solved"):
+            from .crossover import crossover
+
+            cr = crossover(std.A.toarray(), std.b, std.c, sol.x_std)
+            print(f"crossover: optimal_basis={cr.optimal} "
+                  f"vertex_obj={std.user_objective(cr.pobj):.8f}")
 
     if args.json:
         rec = {

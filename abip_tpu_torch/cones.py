@@ -568,3 +568,85 @@ def cone_barrier_prox(t: torch.Tensor, lam_e: torch.Tensor,
     if layout.has_rsoc:
         out = torch.where(code >= E_RSOC_H1, _rsoc_blocks(t, lam_e, co), out)
     return out
+
+
+# -------------------------------------------------------------------- #
+# Euclidean projection                                                 #
+# -------------------------------------------------------------------- #
+_PROJ_TINY = 1e-300  # the reference's `_TINY` guard of nu
+
+
+def cone_project(z: torch.Tensor, layout: ConeLayout, dual: bool = False,
+                 co: ConeOperands = None) -> torch.Tensor:
+    """Euclidean projection Pi_K(z), or onto the dual cone K* with
+    `dual` (port of `abip_tpu/cones.py:477-536`); `z` is `(..., n)`.
+
+    Per block (self-dual blocks project identically under `dual`):
+      free:   z            (dual cone of free is {0})
+      zero:   0            (dual cone of {0} is free)
+      nonneg: max(z, 0)
+      SOC (t, u), nu = ||u||:  z if nu <= t;  0 if nu <= -t;
+          else ((t+nu)/2) * (1, u/nu)                (Moreau three-branch)
+      RSOC: conjugate by the orthogonal rotation H mapping
+          (t1, t2) -> ((t1+t2)/sqrt2, (t1-t2)/sqrt2): Pi_R = H Pi_SOC H.
+    `co` is the layout's `ConeOperands` on z's device (built when None).
+    """
+    if co is None:
+        co = cone_operands(layout.spec, z.device)
+    x = z.reshape(-1, layout.n)
+    code = co.code
+    free_k, zero_k = (E_ZERO, E_FREE) if dual else (E_FREE, E_ZERO)
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    out = torch.where(code == E_NN, torch.clamp(x, min=0.0), x)
+    out = torch.where(code == zero_k, zero, out)
+    out = torch.where(code == free_k, x, out)
+    if not layout.has_blocks:
+        return out.reshape(z.shape)
+
+    bl = Blocks.of(co)
+    rt2 = torch.sqrt(torch.tensor(2.0, dtype=x.dtype, device=x.device))
+    rsoc = ~bl.soc
+    t1b, t2b = bl.head(x), bl.head2(x)
+    # the SOC head in rotated coordinates; the rotated RSOC "b" component
+    # joins the body norm
+    t_blk = torch.where(rsoc, (t1b + t2b) / rt2, t1b)
+    b_rot = (t1b - t2b) / rt2
+    bsq = bl.body_sum(x * x) + torch.where(rsoc, b_rot * b_rot, zero)
+    nu = torch.sqrt(bsq)
+    keep = nu <= t_blk
+    kill = nu <= -t_blk
+    alpha = 0.5 * (t_blk + nu)
+    head_out = torch.where(keep, t_blk, torch.where(kill, zero, alpha))
+    fac = torch.where(keep, torch.ones_like(nu), torch.where(
+        kill, zero, alpha / torch.clamp(nu, min=_PROJ_TINY)))
+    b_out = b_rot * fac
+    head1 = torch.where(rsoc, (head_out + b_out) / rt2, head_out)
+    head2 = (head_out - b_out) / rt2
+    blocks = bl.scatter(head1, head2, fac, x, code)
+    out = torch.where(code >= E_SOC_H, blocks, out)
+    return out.reshape(z.shape)
+
+
+def cone_membership_violation(x: torch.Tensor,
+                              layout: ConeLayout) -> torch.Tensor:
+    """Max violation of K-membership (port of `abip_tpu/cones.py:448-474`)
+    per row of an `(..., n)` tensor.
+
+    zero: |x|; nonneg: max(-x, 0); soc: ||b|| - t; rsoc: ||b||^2 - 2 t1 t2.
+    """
+    co = cone_operands(layout.spec, x.device)
+    r = x.reshape(-1, layout.n)
+    zero = torch.zeros((), dtype=r.dtype, device=r.device)
+    viol = torch.where(co.code == E_NN, torch.clamp(-r, min=0.0),
+                       zero).amax(-1)
+    viol = torch.maximum(viol, torch.where(co.code == E_ZERO, r.abs(),
+                                           zero).amax(-1))
+    if layout.has_blocks:
+        bl = Blocks.of(co)
+        bsq = bl.body_sum(r * r)
+        t0, t1 = bl.head(r), bl.head2(r)
+        viol = torch.maximum(viol, torch.where(
+            bl.soc, torch.sqrt(bsq) - t0, zero).amax(-1))
+        viol = torch.maximum(viol, torch.where(
+            ~bl.soc, bsq - 2.0 * t0 * t1, zero).amax(-1))
+    return viol.reshape(x.shape[:-1])

@@ -180,9 +180,9 @@ def solve_mps(path: str, settings=None, dense: bool = True,
     presolve constant and the min/max sign flip.  `method` selects the
     solver on the standard form: "abip" (`solve_lp`; with dense=False its
     scipy sparse A runs through K5 on the card) or "device" (the batched
-    `device_solve_lp` with a lane axis of 1).  The solve runs on the CUDA
-    card unless `device` says otherwise.  "pdhg" (the restarted PDHG
-    competitor) is not ported.
+    `device_solve_lp` with a lane axis of 1) or "pdhg" (the restarted
+    PDHG competitor, `pdhg.solve_lp_pdhg`).  The solve runs on the CUDA
+    card unless `device` says otherwise.
     """
     from .mps import read_mps
     from ..lp import solve_lp
@@ -194,9 +194,10 @@ def solve_mps(path: str, settings=None, dense: bool = True,
         std = pad_standard(std, pad_bucket)
     A = std.A.toarray() if dense else std.A
     if method == "pdhg":
-        raise NotImplementedError(
-            "solve_mps(method='pdhg') needs pdhg.py, which is not ported to "
-            "abip_tpu_torch yet (ROADMAP.md queue 1, item 17)")
+        from ..pdhg import solve_lp_pdhg
+
+        sol = solve_lp_pdhg(A.toarray() if sp.issparse(A) else A, std.b,
+                            std.c, device=device, **overrides)
     elif method == "device":
         # the whole solve as one batched device program
         # (`abip_tpu/io/presolve.py:199-252`), at B=1

@@ -12,7 +12,11 @@ Port of `abip_tpu/linsys/cg.py`, the reference PCG backend
 
 The reference's `lax.while_loop` is a host loop here: the stop test
 `||r|| >= tol` is read from the device once per CG iteration, so the
-iteration count is exactly the reference's.
+iteration count is exactly the reference's.  `pcg_lanes` is the same
+loop over a `(B, m)` stack of independent systems, the reference's
+`pcg` under `vmap`: a lane whose residual is below its tolerance (or at
+its iteration cap) is frozen, and the host reads "any lane running"
+only every `_CG_SYNC` iterations.
 """
 from __future__ import annotations
 
@@ -20,6 +24,8 @@ import torch
 
 CG_BEST_TOL = 1e-9
 CG_MIN_TOL = 1e-1
+# `pcg_lanes`: CG iterations between two host reads of "any lane running"
+_CG_SYNC = 4
 
 
 def pcg(G, M, b, x0, tol, max_iters):
@@ -54,6 +60,62 @@ def cg_tolerance(rhs_norm, iter_count, cg_rate, dtype):
         CG_BEST_TOL if it < 0 else CG_MIN_TOL / (max(it, 0.0) + 1.0) ** cg_rate,
         dtype=dtype)
     return torch.clamp(rhs_norm * sched.to(rhs_norm.device), min=1e-7)
+
+
+def pcg_lanes(G, M, b, x0, tol, max_iters, active=None):
+    """`pcg` on B independent systems at once: G maps `(B, m)` to
+    `(B, m)`, M is the `(B, m)` Jacobi preconditioner, `tol` the `(B,)`
+    per-lane stop tolerance, `max_iters` an int or `(B,)` caps.
+
+    A lane runs while ||r|| >= tol and its count is below its cap, and
+    only while `active` (a `(B,)` mask, default all): once stopped it is
+    frozen (x, r, p and its count no longer change), so stopping is
+    monotone and the host reads the stop test only every `_CG_SYNC`
+    iterations; the counts are those of a per-lane while loop.  Returns
+    (x, `(B,)` int32 iteration counts)."""
+    B = b.shape[0]
+    dev = b.device
+    cap = torch.as_tensor(max_iters, device=dev).to(torch.int32).expand(B)
+    x = x0
+    r = b - G(x)
+    z = M * r
+    p = z
+    ipzr = (z * r).sum(-1)
+    its = torch.zeros((B,), dtype=torch.int32, device=dev)
+    run_mask = torch.ones((B,), dtype=torch.bool, device=dev) \
+        if active is None else active
+    t = 0
+    while True:
+        run = run_mask & (torch.linalg.vector_norm(r, dim=-1) >= tol) \
+            & (its < cap)
+        if t % _CG_SYNC == 0 and not bool(run.any()):
+            break
+        t += 1
+        Gp = G(p)
+        alpha = ipzr / (p * Gp).sum(-1)
+        x_n = x + alpha[:, None] * p
+        r_n = r - alpha[:, None] * Gp
+        z = M * r_n
+        ipzr_new = (z * r_n).sum(-1)
+        p_n = z + (ipzr_new / ipzr)[:, None] * p
+        rc = run[:, None]
+        x = torch.where(rc, x_n, x)
+        r = torch.where(rc, r_n, r)
+        p = torch.where(rc, p_n, p)
+        ipzr = torch.where(run, ipzr_new, ipzr)
+        its = its + run.to(torch.int32)
+    return x, its
+
+
+def cg_tolerance_lanes(rhs_norm, iter_count, cg_rate):
+    """`cg_tolerance` per lane: `rhs_norm` and `iter_count` are `(B,)`
+    tensors, as the reference's schedule is traced on a per-lane count
+    under `vmap` (`indirect.c:406-409`)."""
+    it = iter_count.to(rhs_norm.dtype)
+    sched = torch.where(
+        it < 0, torch.full_like(it, CG_BEST_TOL),
+        CG_MIN_TOL / torch.pow(torch.clamp(it, min=0.0) + 1.0, cg_rate))
+    return torch.clamp(rhs_norm * sched, min=1e-7)
 
 
 class CGSolver:

@@ -221,7 +221,7 @@ class DenseSchurSolver:
         leaves as numpy arrays, after `jax.device_get`; batched or one
         lane) as the port's."""
         if dss.mode not in ("newton", "chol"):
-            raise NotImplementedError(f"mode {dss.mode!r} is not converted")
+            raise ValueError(f"mode {dss.mode!r} is not converted")
         one_lane = np.ndim(dss.A) == 2
 
         def t(x):

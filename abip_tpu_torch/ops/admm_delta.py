@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
@@ -420,11 +421,13 @@ def delta_chunk_cuda(anc: DeltaAnchor, t_max, probe, plan=None):
             ctypes.c_void_p(stream))
     if err:
         raise _cuda_error(lib, "admm_delta kernel launch failed", err)
-    delta_chunk_cuda.launches += 1
+    with _LAUNCHES_LOCK:   # pool threads launch concurrently
+        delta_chunk_cuda.launches += 1
     return tuple(outs)
 
 
 delta_chunk_cuda.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def _per_lane(x, B, like):

@@ -97,7 +97,22 @@ duration:
    cblib_mini suites, as one padded batch and per instance; the LASSO and
    SVM front doors (`solve_lasso`, `solve_lasso_batch` against a FISTA
    oracle, `solve_svm` in both forms against each other).  Each part
-   prints its wall, ADMM counts and K2/K3/K4 launches.
+   prints its wall, ADMM counts and K2/K3/K4 launches;
+9. the rest of the single-card port: B=8 same-pattern PageRank families
+   (`tools/pagerank_batch_bench._family`'s construction) at n = 1e4 and
+   1e5 through `solve_lp_batch_coo` (every lane at 1'x = 1 within 1e-5;
+   profiled over the first 3 barrier stages); 48 smoke LPs through the
+   lane-swap stream (B=16, seg_chunks=32, qres_period=64) and through
+   three fixed delta batches, each against HiGHS; 8 smoke LPs through
+   the thread pool at 1 and 4 workers (equal bit for bit, K1 counted,
+   then held to its plain version from a worker thread's stream);
+   restarted PDHG on every netlib_mini .mps (`solve_mps(method="pdhg")`)
+   and cblib_mini .cbf and on a B=16 mixed-precision smoke batch;
+   crossover (`python -m abip_tpu_torch blend01.mps --crossover --json`,
+   then every netlib_mini ADMM solve of phase 7); `solve_lp_grad` on a
+   smoke LP (the gradient against y and central differences, one
+   batched forward) and `solve_lasso_grad` (against a central
+   difference).
 
     python3 chip_smoke.py --ab PARENT
 
@@ -108,8 +123,9 @@ own, in the order this, PARENT, this, and prints their times.
 Each main path runs with its kernels' launch counts set to 0 just
 before it and read just after (K5 also on the MPS route of phase 7,
 `mps_route_launches`; K2, K3 and K4 on phase 8's paths,
-`batched_rest_launches`).  Exits nonzero, printing no result,
-without a card or on any failure.  The last three lines are the kernel summary
+`batched_rest_launches`; K1 in phase 9's thread pool,
+`pool_launches`).  Exits nonzero, printing no result, without a card or
+on any failure.  The last three lines are the kernel summary
 (JSON, with each kernel's bound on this card), the card's name and power
 limit, and the result (JSON).
 """
@@ -361,27 +377,35 @@ def phase_main_path(torch, dev):
     return launches
 
 
+def highs_worst_gap(data, pobjs, label):
+    """Raise unless every objective is within 1e-5 relative of scipy's
+    HiGHS; returns the largest relative gap."""
+    from scipy.optimize import linprog
+
+    worst = 0.0
+    for i, ((A, b, c), p) in enumerate(zip(data, pobjs)):
+        ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
+        if ref.status != 0:
+            raise AssertionError(f"scipy failed on instance {i}: "
+                                 f"{ref.message}")
+        rel = abs(p - ref.fun) / max(1.0, abs(ref.fun))
+        worst = max(worst, rel)
+        if not rel <= 1e-5:
+            raise AssertionError(f"{label} instance {i}: pobj {p} vs HiGHS "
+                                 f"{ref.fun} (rel {rel:.2e})")
+    return worst
+
+
 def lp_vs_highs(data, res, label):
     """Raise unless every lane is Solved, finite and within 1e-5 relative
     of scipy's HiGHS."""
-    from scipy.optimize import linprog
-
     status = res.status.cpu().numpy()
     pobj = res.pobj.cpu().numpy()
     if (status != 1).any():
         raise AssertionError(f"{label}: statuses {status.tolist()}")
     if not (np.isfinite(res.x.cpu().numpy()).all() and np.isfinite(pobj).all()):
         raise AssertionError(f"{label}: non-finite solution")
-    worst = 0.0
-    for i, (A, b, c) in enumerate(data):
-        ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs")
-        if ref.status != 0:
-            raise AssertionError(f"scipy failed on lane {i}: {ref.message}")
-        rel = abs(pobj[i] - ref.fun) / max(1.0, abs(ref.fun))
-        worst = max(worst, rel)
-        if rel > 1e-5:
-            raise AssertionError(f"{label} lane {i}: pobj {pobj[i]} vs "
-                                 f"HiGHS {ref.fun} (rel {rel:.2e})")
+    worst = highs_worst_gap(data, pobj, label)
     print(f"{label} vs scipy HiGHS: {len(data)}/{len(data)} solved, max "
           f"relative objective gap {worst:.3e} (limit 1e-5)")
 
@@ -1867,7 +1891,7 @@ def sedumi_certificate(path, sol, label):
         raise AssertionError(f"{label}: {sol.status_name}, certificate off")
 
 
-def phase_front_files(torch, dev):
+def phase_front_files(torch, dev, mps_solves=None):
     """The committed suites through the CLI's own functions, on the card:
     every conic_mini .mat against its stored pobj_star (a file without
     one held to `sedumi_certificate`), every cblib_mini .cbf against
@@ -1876,7 +1900,9 @@ def phase_front_files(torch, dev):
     netlib_mini .mps with dense=False against scipy's HiGHS on the
     presolved standard form, K5 held to its plain version on each packed
     A and A' and counted; then one `python -m abip_tpu_torch FILE.cbf
-    --json` subprocess.  Returns K5's launches on the MPS route."""
+    --json` subprocess.  Records each .mps file's standard form and
+    standard-form solution in `mps_solves` (phase 9's crossover starts
+    from them).  Returns K5's launches on the MPS route."""
     import glob
     import time
 
@@ -1936,6 +1962,8 @@ def phase_front_files(torch, dev):
         bcsr_matvec_cuda.launches = 0
         sol, std = solve_mps(p, dense=False, eps=FRONT_EPS)
         launches = bcsr_matvec_cuda.launches
+        if mps_solves is not None:
+            mps_solves[base(p)] = (std, sol.x_std)
         if (launches > 0) != packed:
             raise AssertionError(f"{base(p)}.mps: K5 launches {launches}, "
                                  f"packed {packed}")
@@ -2459,6 +2487,390 @@ def phase_ml(torch, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the rest of the single-card port
+# ---------------------------------------------------------------------------
+
+# same-pattern PageRank families: `tools/pagerank_batch_bench._family`'s
+# deg 6, alpha linspace(0.80, 0.87, B), seed 0, at the sizes its bench
+# names (n = 1e4: 70k stored entries a lane, n = 1e5: 700k)
+PR_SIZES = (10_000, 100_000)
+PR_B = 8
+PR_EPS = 1e-6
+PR_PROFILE_IPM = 3            # barrier stages of the profiled family solve
+# the lane-swap stream against fixed batches (`bench.reference_smoke_lp`)
+STREAM_COUNT = 48
+STREAM_KW = dict(B=16, seg_chunks=32, qres_period=64, eps=1e-6)
+POOL_COUNT = 8
+POOL_WORKERS = (1, 4)
+PDHG_EPS = 1e-6
+PDHG_BATCH_KW = dict(eps=1e-6, precision="mixed")
+# differentiation: the gradient of pobj w.r.t. b against y and a central
+# finite difference (step FD_STEP) on FD_COORDS coordinates of b; the
+# LASSO's d||w||_1/dlam against one of step FD_LAM lam
+GRAD_EPS = 1e-8
+FD_COORDS = (0, 17, 41)
+FD_STEP = 1e-2
+FD_LAM = 1e-3
+def pagerank_family(n, count, seed=0):
+    """A same-pattern PageRank family as `tools/pagerank_batch_bench.
+    _family` builds it (a copy: that tool's `main` imports JAX): the
+    shared pattern (rows sorted), values (count, nnz), b, c."""
+    import scipy.sparse as sp
+
+    from benchmarks.generate import pagerank_lp
+
+    rows = cols = None
+    valss, bs, cs = [], [], []
+    for a in np.linspace(0.80, 0.87, count):
+        A, b, c = pagerank_lp(n=n, deg=6, alpha=float(a), seed=seed)
+        Ac = sp.coo_matrix(A)
+        order = np.lexsort((Ac.col, Ac.row))
+        if rows is None:
+            rows, cols = Ac.row[order].astype(np.int32), \
+                Ac.col[order].astype(np.int32)
+        valss.append(Ac.data[order])
+        bs.append(b)
+        cs.append(c)
+    return rows, cols, np.stack(valss), np.stack(bs), np.stack(cs)
+
+
+def phase_pagerank(torch, dev, card):
+    """B=8 same-pattern PageRank families at n = 1e4 and 1e5 through
+    `solve_lp_batch_coo` (eps=1e-6): every lane Solved with
+    |1'x - 1| <= 1e-5 (the exact optimum); then a profile of the first
+    PR_PROFILE_IPM barrier stages (launches, busy share, CG iterations
+    per ADMM iteration)."""
+    import time
+
+    from abip_tpu_torch.parallel import solve_lp_batch_coo
+    from abip_tpu_torch.utils.timing import wall_s
+
+    for n in PR_SIZES:
+        t0 = time.perf_counter()
+        fam = pagerank_family(n, PR_B)
+        build = time.perf_counter() - t0
+
+        def run(max_ipm=200, info=None):
+            return solve_lp_batch_coo(*fam, m=n, n=n, eps=PR_EPS,
+                                      max_ipm=max_ipm, info=info)
+
+        info = {}
+        sec, res = wall_s(lambda: run(info=info))
+        ones = res.x.sum(-1).cpu().numpy()
+        admm = res.admm_iters.cpu().numpy()
+        cg = info["cg_iters"].cpu().numpy()
+        status = res.status.cpu().numpy()
+        print(f"PageRank family B={PR_B} n={n} ({fam[0].size} stored entries "
+              f"a lane, built in {build:.1f} s) [{card}]: wall {sec:.3f} s, "
+              f"status {status.tolist()}, ADMM {admm.tolist()}, IPM "
+              f"{res.ipm_iters.tolist()}, CG {cg.tolist()} "
+              f"({cg.sum() / admm.sum():.2f} per ADMM iteration), "
+              f"|1'x - 1| max {np.abs(ones - 1).max():.3e} (limit 1e-5)")
+        if (status != 1).any() or not (np.abs(ones - 1) <= 1e-5).all():
+            raise AssertionError(f"PageRank n={n}: status {status.tolist()}, "
+                                 f"1'x {ones.tolist()}")
+        pinfo, last = {}, {}
+
+        def staged():
+            last["res"] = run(PR_PROFILE_IPM, pinfo)
+
+        prof = profile_solve(torch, staged, {},
+                             f"PageRank B={PR_B} n={n}, first "
+                             f"{PR_PROFILE_IPM} barrier stages")
+        if prof is not None:
+            r = last["res"]
+            lock = int(r.admm_iters.max())
+            cg_rate = float(pinfo["cg_iters"].sum()) / max(
+                1, int(r.admm_iters.sum()))
+            print(f"profile PageRank n={n}: {prof['launches']} launches over "
+                  f"{lock} lockstep ADMM iterations = "
+                  f"{prof['launches'] / max(1, lock):.1f} per iteration, "
+                  f"{cg_rate:.2f} CG iterations per ADMM iteration, device "
+                  "busy "
+                  f"{100 * prof['busy_us'] / 1e6 / prof['plain_sec']:.1f}% of "
+                  "the unprofiled wall")
+
+
+def phase_stream(torch, dev, card):
+    """48 fresh smoke LPs through the lane-swap stream (B=16, seg_chunks=32,
+    qres_period=64) and through `solve_lp_batch` in three fixed batches
+    of 16 (`SOLVE_KW`: delta, K1), each within 1e-5 of HiGHS."""
+    from abip_tpu_torch.parallel import solve_lp_batch
+    from abip_tpu_torch.parallel.segmented import solve_lp_stream
+    from abip_tpu_torch.utils.timing import wall_s
+
+    data, stacks = smoke_batch(9000, STREAM_COUNT)
+    sec_s, (out, info) = wall_s(lambda: solve_lp_stream(data, **STREAM_KW))
+    bad = [r["status"] for r in out if r["status"] != 1]
+    if bad:
+        raise AssertionError(f"stream: statuses {bad}")
+    worst_s = highs_worst_gap(data, [r["pobj"] for r in out], "stream")
+    print(f"stream {STREAM_COUNT} smoke LPs B={STREAM_KW['B']} seg_chunks="
+          f"{STREAM_KW['seg_chunks']} qres_period={STREAM_KW['qres_period']} "
+          f"[{card}]: wall {sec_s:.3f} s, {info['segments']} segments, ADMM "
+          f"total {info['total_admm_iters']}, solved {info['solved']}/"
+          f"{STREAM_COUNT}, vs HiGHS max relative gap {worst_s:.3e} "
+          "(limit 1e-5)")
+    secs, admm = [], 0
+    for k in range(0, STREAM_COUNT, B):
+        sec, res = wall_s(lambda: solve_lp_batch(
+            *(x[k:k + B] for x in stacks), device=dev, **SOLVE_KW))
+        lp_vs_highs(data[k:k + B], res, f"fixed batch {k // B}")
+        secs.append(sec)
+        admm += int(res.admm_iters.sum())
+    print(f"fixed batches 3 x B={B} (delta, T=1536) [{card}]: walls "
+          f"{[round(s, 4) for s in secs]} s, total {sum(secs):.3f} s, ADMM "
+          f"total {admm}; the stream's wall / the batches' "
+          f"{sec_s / sum(secs):.2f}")
+
+
+def _lane_equal(torch, a, b):
+    return all(torch.equal(getattr(a, f), getattr(b, f)) for f in
+               ("x", "y", "s", "status", "ipm_iters", "admm_iters", "pobj"))
+
+
+def phase_pool(torch, dev, card):
+    """8 smoke LPs through `solve_lp_pool` (`SOLVE_KW`: the delta engine,
+    K1 on each worker's CUDA stream) at workers 1 and 4: equal results,
+    each within 1e-5 of HiGHS; then K1 held to its plain version on a
+    mid-solve anchor issued from a worker thread's stream.  Returns K1's
+    launches at each worker count."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from abip_tpu_torch.ops.admm_delta import delta_chunk_cuda
+    from abip_tpu_torch.parallel import solve_lp_pool
+
+    data, _ = smoke_batch(9100, POOL_COUNT)
+    runs, launches = {}, {}
+    for w in POOL_WORKERS:
+        sec, out, (k1,) = counted(
+            lambda: solve_lp_pool(data, workers=w, **SOLVE_KW),
+            [delta_chunk_cuda])
+        runs[w], launches[f"workers={w}"] = out, k1
+        worst = highs_worst_gap(data, [float(r.pobj) for r in out],
+                                f"pool {w}")
+        admm = sum(int(r.admm_iters) for r in out)
+        print(f"pool {POOL_COUNT} smoke LPs workers={w} [{card}]: wall "
+              f"{sec:.3f} s, ADMM total {admm}, K1 launches {k1}, vs HiGHS "
+              f"max relative gap {worst:.3e} (limit 1e-5)")
+        if k1 <= 0:
+            raise AssertionError(f"pool workers={w} launched K1 no time")
+    same = [_lane_equal(torch, a, b) for a, b in zip(*runs.values())]
+    print(f"pool workers=1 vs workers=4: {sum(same)}/{POOL_COUNT} instances "
+          "equal bit for bit")
+    if not all(same):
+        raise AssertionError("the pool's results differ between worker "
+                             "counts")
+
+    def on_worker_stream():
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.default_stream(dev))
+        with torch.cuda.stream(stream):
+            return k1_parity(torch, dev, "smoke, from a worker thread's "
+                             "stream", SMOKE, 4)
+
+    with ThreadPoolExecutor(1) as ex:
+        ex.submit(on_worker_stream).result()
+    return launches
+
+
+def phase_pdhg(torch, dev, card):
+    """Restarted PDHG on the card: every netlib_mini .mps through
+    `solve_mps(method="pdhg")` against HiGHS on its presolved form (as
+    phase 7 holds it), every cblib_mini .cbf through `solve_qcp_pdhg`
+    against optima.json (a file without one against the ADMM solve of
+    its .cbf, phase 7's certified route), and a B=16 smoke batch through
+    `solve_lp_pdhg_batch(precision="mixed")` against HiGHS; each Solved
+    within 1e-5 relative."""
+    import glob
+    import time
+
+    from scipy.optimize import linprog
+
+    from abip_tpu_torch import solve_qcp_pdhg
+    from abip_tpu_torch.io.cbf import read_cbf, solve_cbf
+    from abip_tpu_torch.io.presolve import solve_mps
+    from abip_tpu_torch.pdhg import solve_lp_pdhg_batch
+    from abip_tpu_torch.utils.timing import wall_s
+
+    def base(p):
+        return os.path.basename(p).rsplit(".", 1)[0]
+
+    def check(label, sol, obj, star, sec):
+        rel = abs(obj - star) / max(1.0, abs(star))
+        print(f"PDHG {label} [{card}]: {sol.status_name}, {sol.admm_iters} "
+              f"PDHG iterations, wall {sec:.3f} s, objective {obj:.10g} vs "
+              f"{star:.10g}, relative gap {rel:.3e} (limit 1e-5)")
+        if sol.status_name != "Solved" or not rel <= 1e-5:
+            raise AssertionError(f"PDHG {label}: {sol.status_name}, "
+                                 f"{rel:.3e}")
+
+    t0 = time.perf_counter()
+    for p in sorted(glob.glob(os.path.join(SUITES, "netlib_mini", "*.mps"))):
+        sec, (sol, std) = wall_s(lambda: solve_mps(p, method="pdhg",
+                                                   eps=PDHG_EPS))
+        ref = linprog(std.c, A_eq=std.A, b_eq=std.b, bounds=(0, None),
+                      method="highs")
+        check(f"{base(p)}.mps", sol, sol.pobj, std.user_objective(ref.fun),
+              sec)
+    mps_s = time.perf_counter() - t0
+    with open(os.path.join(SUITES, "cblib_mini", "optima.json")) as f:
+        optima = json.load(f)
+    t0 = time.perf_counter()
+    for p in sorted(glob.glob(os.path.join(SUITES, "cblib_mini", "*.cbf"))):
+        emb = read_cbf(p)
+        sec, sol = wall_s(lambda: solve_qcp_pdhg(emb.A, emb.b, emb.c,
+                                                 emb.cones, eps=PDHG_EPS))
+        star = optima.get(base(p))
+        if star is None:
+            star = solve_cbf(p, eps=FRONT_EPS)[2]
+        check(f"{base(p)}.cbf", sol, emb.objective(sol.pobj), star, sec)
+    cbf_s = time.perf_counter() - t0
+    data, stacks = smoke_batch(9300)
+    sec, st = wall_s(lambda: solve_lp_pdhg_batch(*stacks, **PDHG_BATCH_KW))
+    status = st.status.cpu().numpy()
+    if (status != 1).any():
+        raise AssertionError(f"PDHG batch: statuses {status.tolist()}")
+    worst = highs_worst_gap(data, st.pobj.tolist(), "PDHG batch")
+    k = st.k.cpu().numpy()
+    print(f"PDHG batch B={B} smoke mixed [{card}]: wall {sec:.3f} s, PDHG "
+          f"iterations {k.tolist()} ({int(k.max())} lockstep, "
+          f"{int(k.sum()) / sec:.1f} aggregate it/s), vs HiGHS max relative "
+          f"gap {worst:.3e} (limit 1e-5)")
+    print(f"PDHG suites [{card}]: 12 .mps in {mps_s:.1f} s, 12 .cbf in "
+          f"{cbf_s:.1f} s")
+
+
+def phase_crossover(torch, dev, card, mps_solves):
+    """`python -m abip_tpu_torch blend01.mps --crossover --json` as a
+    subprocess: Solved, optimal_basis=True and the vertex objective within
+    1e-7 relative of HiGHS; then `crossover` after each netlib_mini ADMM
+    solve of phase 7 (`mps_solves`), counting the certified bases."""
+    import time
+
+    from scipy.optimize import linprog
+
+    from abip_tpu_torch.crossover import crossover
+
+    path = os.path.join(SUITES, "netlib_mini", "blend01.mps")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "abip_tpu_torch", path,
+                           "--crossover", "--json"], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          check=False)
+    lines = proc.stdout.splitlines()
+    cross = [ln for ln in lines if ln.startswith("crossover:")]
+    recs = [ln for ln in lines if ln.startswith("{")]
+    if proc.returncode or not cross or not recs:
+        print(proc.stdout[-2000:], proc.stderr[-2000:], file=sys.stderr)
+        raise AssertionError("python -m abip_tpu_torch --crossover failed")
+    fields = dict(f.split("=") for f in cross[0].split()[1:])
+    std, _ = mps_solves["blend01"]
+    ref = linprog(std.c, A_eq=std.A, b_eq=std.b, bounds=(0, None),
+                  method="highs")
+    star = std.user_objective(ref.fun)
+    rel = abs(float(fields["vertex_obj"]) - star) / max(1.0, abs(star))
+    print(f"crossover CLI `python -m abip_tpu_torch blend01.mps --crossover "
+          f"--json` ({time.perf_counter() - t0:.1f} s with start-up): "
+          f"{cross[0]}; {recs[-1]}; vertex vs HiGHS {star:.10g}: relative "
+          f"gap {rel:.3e} (limit 1e-7)")
+    if (fields["optimal_basis"] != "True" or not rel <= 1e-7
+            or json.loads(recs[-1])["status"] != "Solved"):
+        raise AssertionError("the CLI's crossover did not certify blend01")
+    certified = []
+    for name, (std, x_std) in sorted(mps_solves.items()):
+        t0 = time.perf_counter()
+        cr = crossover(std.A.toarray(), std.b, std.c, x_std)
+        print(f"crossover {name}.mps after its ADMM solve: optimal_basis="
+              f"{cr.optimal}, vertex objective "
+              f"{std.user_objective(cr.pobj):.10g}, primal feasibility "
+              f"{cr.primal_feas:.2e}, min reduced cost "
+              f"{cr.min_reduced_cost:.2e} ({time.perf_counter() - t0:.2f} s)")
+        if cr.optimal:
+            certified.append(name)
+    print(f"crossover: {len(certified)}/{len(mps_solves)} netlib_mini files "
+          f"give an optimal basis (the reference's record "
+          f"benchmarks/results/r02_netlib_mini_crossover: 12/12)")
+
+
+def phase_grad(torch, dev, card):
+    """`solve_lp_grad` on one smoke LP (m=50, n=2000, eps=GRAD_EPS, the
+    delta engine of `SOLVE_KW`: K1), as one batched forward of b and its
+    central-difference neighbours b +- FD_STEP e_i on FD_COORDS: the
+    gradient of pobj w.r.t. b (lane 0's backward) equals y within 1e-6
+    of y's scale and the central differences within 1e-4 of it;
+    `solve_lasso_grad` on `lasso_instance(m=200, n=1000)`: d(||w||_1)/d
+    lam against a central difference (step FD_LAM of lam) within 1e-3
+    relative."""
+    import time
+
+    from benchmarks.generate import lasso_instance
+
+    from abip_tpu_torch import solve_lasso_grad, solve_lp_grad
+    from bench import reference_smoke_lp
+
+    A, b, c = reference_smoke_lp(seed=9200, **SMOKE)
+    steps = [np.zeros_like(b)]
+    for i in FD_COORDS:
+        for sign in (1.0, -1.0):
+            steps.append(np.zeros_like(b))
+            steps[-1][i] = sign * FD_STEP
+    bt = torch.tensor(b + np.stack(steps), device=dev, requires_grad=True)
+    ct = torch.as_tensor(c, device=dev)
+    opts = {k: v for k, v in SOLVE_KW.items() if k != "eps"}
+    t0 = time.perf_counter()
+    x, y, _ = solve_lp_grad(A, bt, c, eps=GRAD_EPS, **opts)
+    pobj = x @ ct
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pobj[0].backward()
+    g = bt.grad[0].cpu().numpy()
+    bwd = time.perf_counter() - t0
+    p = pobj.detach().cpu().numpy()
+    yv = y[0].detach().cpu().numpy()
+    scale = np.abs(yv).max()
+    err = np.abs(g - yv).max()
+    fd = [(p[1 + 2 * k] - p[2 + 2 * k]) / (2 * FD_STEP)
+          for k in range(len(FD_COORDS))]
+    fd_err = max(abs(f - g[i]) for f, i in zip(fd, FD_COORDS))
+    print(f"solve_lp_grad smoke m=50 n=2000 eps={GRAD_EPS} (delta engine, "
+          f"{len(steps)} lanes: b and its central-difference neighbours) "
+          f"[{card}]: forward {fwd:.3f} s, backward {bwd:.3f} s, pobj "
+          f"{p[0]:.10g}; |d pobj/db - y| max {err:.3e} (limit 1e-6 x "
+          f"{scale:.3e}); central differences (step {FD_STEP}) at "
+          f"b{list(FD_COORDS)} {[round(float(f), 8) for f in fd]} vs gradient "
+          f"{[round(float(g[i]), 8) for i in FD_COORDS]}, max gap "
+          f"{fd_err:.3e} (limit 1e-4 x {scale:.3e})")
+    if not (err <= 1e-6 * scale and fd_err <= 1e-4 * scale):
+        raise AssertionError("solve_lp_grad: the gradient is off")
+    m, n = LASSO_SHAPE["m"], LASSO_SHAPE["n"]
+    X, yl, lam = lasso_instance(m=m, n=n, seed=m + n)
+    lt = torch.tensor(float(lam), device=dev, requires_grad=True)
+    t0 = time.perf_counter()
+    w = solve_lasso_grad(X, yl, lt, eps=GRAD_EPS)
+    l1 = w.abs().sum()
+    torch.cuda.synchronize()
+    fwd = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    l1.backward()
+    g = float(lt.grad)
+    bwd = time.perf_counter() - t0
+    h = FD_LAM * lam
+    fp, fm = (float(solve_lasso_grad(X, yl, lam + s * h,
+                                     eps=GRAD_EPS).abs().sum())
+              for s in (1.0, -1.0))
+    fd = (fp - fm) / (2 * h)
+    rel = abs(g - fd) / max(abs(fd), 1e-12)
+    print(f"solve_lasso_grad m={m} n={n} lam={lam:.6g} eps={GRAD_EPS} "
+          f"[{card}]: forward {fwd:.3f} s, backward {bwd:.3f} s, ||w||_1 "
+          f"{float(l1.detach()):.10g}, d||w||_1/dlam {g:.8g} vs central "
+          f"difference {fd:.8g}, relative gap {rel:.3e} (limit 1e-3)")
+    if not rel <= 1e-3:
+        raise AssertionError("solve_lasso_grad: the gradient is off")
+
+
+# ---------------------------------------------------------------------------
 # the host LP driver and K5
 # ---------------------------------------------------------------------------
 
@@ -2866,6 +3278,9 @@ def ab_parent(parent):
 def main():
     import time
 
+    # cuBLAS picks its kernels per workspace; a fixed configuration keeps
+    # the thread pool's concurrent streams on the same ones (phase 9)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -2941,7 +3356,9 @@ def main():
     phase("front door conic", phase_front_conic, torch, dev)
     phase("front door CG", phase_front_cg, torch, dev)
     phase("front door workspace", phase_front_workspace, torch, dev)
-    k5_mps = phase("front door files", phase_front_files, torch, dev)
+    mps_solves = {}
+    k5_mps = phase("front door files", phase_front_files, torch, dev,
+                   mps_solves)
     phase("front door profile", phase_front_profile, torch, dev)
     print(f"phase 7 (front door): {time.perf_counter() - t7:.1f} s")
 
@@ -2956,6 +3373,16 @@ def main():
     phase("heterogeneous batches", phase_het, torch, dev, card)
     phase("LASSO and SVM", phase_ml, torch, dev, card)
     print(f"phase 8 (the batched conic rest): {time.perf_counter() - t8:.1f} s")
+
+    t9 = time.perf_counter()
+    phase("PageRank families", phase_pagerank, torch, dev, card)
+    phase("stream against fixed batches", phase_stream, torch, dev, card)
+    k1_pool = phase("thread pool", phase_pool, torch, dev, card)
+    phase("PDHG", phase_pdhg, torch, dev, card)
+    phase("crossover", phase_crossover, torch, dev, card, mps_solves)
+    phase("differentiation", phase_grad, torch, dev, card)
+    print(f"phase 9 (the rest of the single-card port): "
+          f"{time.perf_counter() - t9:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, err, times, library=None,
@@ -2970,7 +3397,8 @@ def main():
 
     print(json.dumps({"kernels": [
         entry("delta_cluster_kernel", "admm_delta.cu",
-              "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1),
+              "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1,
+              pool_launches=k1_pool),
         entry("conic_ladder_cluster_kernel", "conic_ladder.cu",
               "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2,
               batched_rest_launches=rest["K2"]),

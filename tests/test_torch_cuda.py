@@ -22,8 +22,19 @@ and a batch whose lane one block of the first K2 could not hold in
 shared memory solved through the kernels (`chip_smoke.phase_repair`).
 The host conic driver (no kernel of its own): `solve_qcp` on the card
 against the port on the CPU, and the CLI's file functions on the card.
+The rest of the single-card port (no kernel of its own; K1 through the
+thread pool): the same-pattern sparse family driver deterministic on the
+card, the lane-swap stream and the pool against serial solves, PDHG's
+mixed products in IEEE f32, and the differentiable LP map and its
+minimum-norm adjoint solve against the CPU.
 """
 import functools
+import os
+
+# cuBLAS picks its kernels per workspace; a fixed configuration keeps the
+# thread pool's concurrent streams on the same ones, and lets the
+# deterministic mode of PyTorch run cuBLAS products
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np
 import pytest
@@ -773,3 +784,175 @@ def test_host_polish_on_card(cuda_device):
     sol = host_polish(A, b, c, cones, res, lane=1, eps=1e-6)
     assert sol.status_name == "Solved"
     assert abs(sol.pobj - stars[1]) <= 1e-5 * max(1.0, abs(stars[1]))
+
+
+# ---------------------------------------------------------------------------
+# the rest of the single-card port
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_pagerank_family_deterministic_on_card(cuda_device):
+    """A same-pattern PageRank family (n=2000, B=4) solved twice on the
+    card under `torch.use_deterministic_algorithms(True)`: equal results
+    bit for bit (the sparse products gather and sum in a fixed order);
+    every lane Solved with |1'x - 1| <= 1e-5; lane 2 against its one-lane
+    solve: equal status and IPM, ADMM and CG counts, x and y within 1e-10
+    of their scale, s within 1e-10 of c's (a reduction over one lane
+    splits its sum across thread blocks otherwise than over four:
+    PyTorch's reduction kernel picks its split by the number of outputs;
+    on the CPU the lane equals its one-lane solve bit for bit,
+    `tests/test_torch_sparse_batched.py`)."""
+    from abip_tpu_torch.parallel import solve_lp_batch_coo
+
+    rows, cols, valss, bs, cs = chip_smoke.pagerank_family(2000, 4)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        infos = [{}, {}, {}]
+        runs = [solve_lp_batch_coo(rows, cols, valss, bs, cs, m=2000, n=2000,
+                                   eps=1e-6, info=infos[k]) for k in range(2)]
+        one = solve_lp_batch_coo(rows, cols, valss[2:3], bs[2:3], cs[2:3],
+                                 m=2000, n=2000, eps=1e-6, info=infos[2])
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    a, b = runs
+    assert a.x.is_cuda
+    for f in a._fields:
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert a.status.tolist() == [1] * 4
+    assert (a.x.sum(-1) - 1).abs().max().item() <= 1e-5
+    assert torch.equal(infos[0]["cg_iters"], infos[1]["cg_iters"])
+    for f in ("status", "ipm_iters", "admm_iters"):
+        assert int(getattr(one, f)[0]) == int(getattr(a, f)[2]), f
+    assert int(infos[2]["cg_iters"][0]) == int(infos[0]["cg_iters"][2])
+    for f in ("x", "y", "s"):
+        lane, alone = getattr(a, f)[2], getattr(one, f)[0]
+        # s = c - A'y is near 0 at the optimum: its scale is c's
+        scale = float(np.abs(cs[2]).max() if f == "s" else lane.abs().max())
+        assert float((lane - alone).abs().max()) <= 1e-10 * scale, f
+
+
+@pytest.mark.cuda
+def test_stream_and_pool_match_serial_on_card(cuda_device):
+    """The lane-swap stream (5 LPs on 2 lanes, lanes refilled and one
+    parked) against each instance streamed alone: equal statuses,
+    objectives within 1e-6 relative (f32 products in both, batched
+    products summing in another order).  The pool with the delta engine
+    (K1 on each worker's stream) at workers=4 against workers=1 and
+    against serial one-lane solves on the default stream: equal bit for
+    bit; K1 launched."""
+    from abip_tpu_torch.ops.admm_delta import delta_chunk_cuda
+    from abip_tpu_torch.parallel import device_solve_lp, solve_lp_pool
+    from abip_tpu_torch.parallel.segmented import solve_lp_stream
+
+    data, _ = chip_smoke.smoke_batch(9500, 5, m=20, n_rand=180)
+    kw = dict(seg_chunks=8, qres_period=16, eps=1e-6)
+    out, info = solve_lp_stream(data, B=2, **kw)
+    assert info["solved"] == 5
+    for p, r in zip(data, out):
+        alone, _ = solve_lp_stream([p], B=1, **kw)
+        assert alone[0]["status"] == r["status"] == 1
+        assert abs(alone[0]["pobj"] - r["pobj"]) <= 1e-6 * abs(r["pobj"])
+    data, _ = chip_smoke.smoke_batch(9600, 4, m=20, n_rand=180)
+    kw = dict(chip_smoke.SOLVE_KW, qres_period=256)
+    delta_chunk_cuda.launches = 0
+    four = solve_lp_pool(data, workers=4, **kw)
+    assert delta_chunk_cuda.launches > 0
+    one = solve_lp_pool(data, workers=1, **kw)
+    for p, a, b in zip(data, four, one):
+        r = device_solve_lp(*(torch.as_tensor(x, device=cuda_device)[None]
+                              for x in p), **kw)
+        assert int(a.status) == 1
+        for f in ("x", "y", "s", "status", "admm_iters", "ipm_iters",
+                  "pobj"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+            assert torch.equal(getattr(a, f), getattr(r, f)[0]), f
+
+
+@pytest.mark.cuda
+def test_pdhg_mixed_products_stay_ieee_f32(cuda_device, monkeypatch):
+    """With TF32 switched on by the caller, every f32 product of PDHG's
+    mixed precision runs with TF32 off (`device.ieee_f32`) and the
+    caller's setting is restored; the batch solves to HiGHS."""
+    from abip_tpu_torch import pdhg
+
+    data, stacks = chip_smoke.smoke_batch(9700, 2, m=15, n_rand=30)
+    matmul = torch.backends.cuda.matmul
+    seen = []
+    mv, rmv = pdhg._mv, pdhg._rmv
+
+    def spy(fn):
+        def wrapped(M, x):
+            if M.dtype == torch.float32:
+                seen.append(matmul.fp32_precision)
+            return fn(M, x)
+        return wrapped
+
+    monkeypatch.setattr(pdhg, "_mv", spy(mv))
+    monkeypatch.setattr(pdhg, "_rmv", spy(rmv))
+    try:
+        matmul.fp32_precision = "tf32"
+        st = pdhg.solve_lp_pdhg_batch(*stacks, eps=1e-6, precision="mixed")
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.allow_tf32 = False
+        matmul.fp32_precision = "none"
+    assert seen and set(seen) == {"ieee"}, (len(seen), set(seen))
+    assert st.status.tolist() == [1, 1]
+    chip_smoke.highs_worst_gap(data, st.pobj.tolist(), "PDHG mixed")
+
+
+def _lp_grad_instance(seed=7, m=8, n=20):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    x0 = rng.random(n) + 0.5
+    y0 = rng.standard_normal(m)
+    return A, A @ x0, A.T @ y0 + rng.random(n) + 0.5
+
+
+@pytest.mark.cuda
+def test_lp_grad_on_card_matches_cpu(cuda_device):
+    """d(v'x*)/db through `solve_lp_grad` on the card against the same
+    call on the CPU: within 1e-8 of the gradient's scale."""
+    from abip_tpu_torch import solve_lp_grad
+
+    A, b, c = _lp_grad_instance()
+    v = np.random.default_rng(11).standard_normal(c.shape[0])
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        bt = torch.tensor(b, device=dev, requires_grad=True)
+        x, _, _ = solve_lp_grad(A, bt, c, eps=1e-9, device=dev)
+        (torch.as_tensor(v, device=dev) @ x).backward()
+        grads.append(bt.grad.cpu().numpy())
+    scale = np.abs(grads[1]).max()
+    assert np.abs(grads[0] - grads[1]).max() <= 1e-8 * scale
+
+
+@pytest.mark.cuda
+def test_min_norm_adjoint_on_card(cuda_device):
+    """At a degenerate vertex (duplicate columns) the minimum-norm adjoint
+    solve on the card gives a finite gradient; on one singular adjoint
+    matrix the card's SVD solve equals the CPU's within 1e-9 relative."""
+    from abip_tpu_torch import solve_lp_grad
+    from abip_tpu_torch.diff import _min_norm_solve
+
+    rng = np.random.default_rng(17)
+    m, n = 6, 12
+    A = rng.standard_normal((m, n))
+    A[:, -1] = A[:, 0]
+    b = A @ (rng.random(n) + 0.5)
+    c = A.T @ rng.standard_normal(m) + rng.random(n) + 0.5
+    c[-1] = c[0]
+    bt = torch.tensor(b, device=cuda_device, requires_grad=True)
+    x, _, _ = solve_lp_grad(A, bt, c, eps=1e-9)
+    x.sum().backward()
+    assert torch.isfinite(bt.grad).all()
+    M = rng.standard_normal((18, 18))
+    M[:, -1] = M[:, 0]                       # rank 17
+    rhs = rng.standard_normal(18)
+    card = _min_norm_solve(torch.as_tensor(M, device=cuda_device),
+                           torch.as_tensor(rhs, device=cuda_device))
+    cpu = _min_norm_solve(torch.as_tensor(M), torch.as_tensor(rhs))
+    assert torch.isfinite(card).all()
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0,
+                               atol=1e-9 * float(cpu.abs().max()))

@@ -202,7 +202,9 @@ def test_solve_mps_routes():
     reference's route on the same file (equal status, ADMM counts within
     10% and objectives within 1e-6 relative, the bar of the mixed-
     precision routes) and to HiGHS on the presolved form (1e-5); "pdhg"
-    names its queue item."""
+    runs the restarted PDHG in f64, held to the reference's "pdhg" route
+    (equal status and iteration count, objectives within 1e-9 relative)
+    and to HiGHS (1e-5)."""
     from scipy.optimize import linprog
 
     path = os.path.join(SUITES, "netlib_mini", "blend01.mps")
@@ -215,8 +217,15 @@ def test_solve_mps_routes():
                   method="highs")
     assert abs(sol.pobj - std.user_objective(ref.fun)) <= 1e-5 * max(
         1.0, abs(ref.fun))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        presolve.solve_mps(path, method="pdhg", **CPU)
+    psol, _ = presolve.solve_mps(path, method="pdhg", eps=1e-6, **CPU)
+    jpsol, _ = jpresolve.solve_mps(path, method="pdhg", eps=1e-6)
+    assert psol.status_name == jpsol.status_name == "Solved"
+    assert psol.admm_iters == jpsol.admm_iters
+    assert abs(psol.pobj - jpsol.pobj) <= 1e-9 * max(1.0, abs(jpsol.pobj))
+    assert abs(psol.pobj - std.user_objective(ref.fun)) <= 1e-5 * max(
+        1.0, abs(ref.fun))
+    np.testing.assert_allclose(psol.x, jpsol.x, rtol=0,
+                               atol=1e-7 * max(1.0, np.abs(jpsol.x).max()))
     with pytest.raises(ValueError, match="Settings"):
         presolve.solve_mps(path, method="device",
                            settings=abip_tpu_torch.Settings(), **CPU)
@@ -287,8 +296,32 @@ def test_cli_in_process_matches_reference(case, tmp_path, capsys):
             assert port[k] == r, k
         elif k in ("pobj", "dobj", "objective"):
             assert abs(port[k] - r) <= OBJ_RTOL * max(1.0, abs(r)), k
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli.main(argv + ["--cpu", "--crossover"])
+
+
+def _crossover_line(main, argv, capsys):
+    code = main(argv)
+    out = capsys.readouterr().out.splitlines()
+    line = [ln for ln in out if ln.startswith("crossover:")]
+    return code, line, json.loads([ln for ln in out if ln.startswith("{")][-1])
+
+
+def test_cli_crossover_matches_reference(capsys):
+    """`--crossover` on an MPS file polishes the solve to a vertex and
+    prints the reference's line: the same certificate (optimal_basis)
+    and the vertex objective within 1e-9 relative (both crossovers are
+    the same numpy code, from interior points within the solves' bar)."""
+    argv = [os.path.join(SUITES, "netlib_mini", "blend01.mps"), "--eps",
+            "1e-6", "--cpu", "--crossover", "--json"]
+    code, line, rec = _crossover_line(cli.main, argv, capsys)
+    rcode, rline, rrec = _crossover_line(jcli.main, argv, capsys)
+    assert code == rcode == 0
+    assert len(line) == len(rline) == 1
+    fields = dict(f.split("=") for f in line[0].split()[1:])
+    rfields = dict(f.split("=") for f in rline[0].split()[1:])
+    assert fields["optimal_basis"] == rfields["optimal_basis"] == "True"
+    v, rv = float(fields["vertex_obj"]), float(rfields["vertex_obj"])
+    assert abs(v - rv) <= 1e-9 * max(1.0, abs(rv))
+    assert rec["status"] == rrec["status"] == "Solved"
 
 
 def test_native_parser_builds_and_cli_needs_a_card():
@@ -300,3 +333,20 @@ def test_native_parser_builds_and_cli_needs_a_card():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main([os.path.join(SUITES, "cblib_mini", "rand_soc_a.cbf"),
                       "--json"])
+
+
+def test_public_surface_matches_reference():
+    """`abip_tpu_torch` and `abip_tpu_torch.parallel` export every name the
+    reference's do, except the multi-card ones not yet ported (ROADMAP
+    queue 1, items 16 and 19: `sharded_normal_matvec`, `sharded_pcg`)."""
+    import abip_tpu.parallel as jpar
+
+    import abip_tpu_torch.parallel as par
+
+    assert set(abip_tpu.__all__) <= set(abip_tpu_torch.__all__)
+    for name in abip_tpu_torch.__all__:
+        assert hasattr(abip_tpu_torch, name), name
+    multi_card = {"sharded_normal_matvec", "sharded_pcg"}
+    assert set(jpar.__all__) - multi_card <= set(par.__all__)
+    for name in par.__all__:
+        assert hasattr(par, name), name
