@@ -9,7 +9,22 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
+
+
+def float_dtype(dtype) -> torch.dtype:
+    """`torch.float32` or `torch.float64` from a torch dtype, a numpy
+    dtype or scalar type, a name ("float32"), or any dtype object numpy
+    reads (JAX's `jnp.float32`, for one).  Other types raise
+    `ValueError`."""
+    if isinstance(dtype, torch.dtype):
+        name = str(dtype).replace("torch.", "")
+    else:
+        name = np.dtype(dtype).name
+    if name not in ("float32", "float64"):
+        raise ValueError(f"dtype must be float32 or float64; got {dtype!r}")
+    return getattr(torch, name)
 
 
 def resolve_device(device=None) -> torch.device:

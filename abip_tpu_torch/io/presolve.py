@@ -223,18 +223,18 @@ def solve_mps(path: str, settings=None, dense: bool = True,
 
         def t(x):
             return torch.as_tensor(np.asarray(x), dtype=torch.float64,
-                                   device=dev)[None]
+                                   device=dev)
 
         r = device_solve_lp(t(A.toarray() if sp.issparse(A) else A),
                             t(std.b), t(std.c), **dkw)
         keys = ("status", "pobj", "dobj", "res_pri", "res_dual", "rel_gap",
                 "ipm_iters", "admm_iters")
         head = dict(zip(keys, torch.stack(          # one device read
-            [getattr(r, k)[0].double() for k in keys]).tolist()))
+            [getattr(r, k).double() for k in keys]).tolist()))
         code = int(head["status"])
         sol = LPSolution(
-            x=r.x[0].cpu().numpy(), y=r.y[0].cpu().numpy(),
-            s=r.s[0].cpu().numpy(), status=code,
+            x=r.x.cpu().numpy(), y=r.y.cpu().numpy(),
+            s=r.s.cpu().numpy(), status=code,
             status_name=Status.name(code),
             pobj=head["pobj"], dobj=head["dobj"],
             res_pri=head["res_pri"], res_dual=head["res_dual"],

@@ -336,8 +336,14 @@ class CGSchurSolver:
         self.tol_ladder = tol_ladder
 
     def _S(self, x):
-        y = self.A_op.matvec(x)
-        out = self.A_op.rmatvec(self.ry_inv * y) + self.rho_x * x
+        normal = getattr(self.A_op, "normal", None)
+        if normal is not None:
+            # a row-sharded A (`ConicWorkspace.shard`): A'(w * A x) with
+            # one collective
+            out = normal(x, self.ry_inv) + self.rho_x * x
+        else:
+            out = (self.A_op.rmatvec(self.ry_inv * self.A_op.matvec(x))
+                   + self.rho_x * x)
         if self.Q_op is not None:
             out = out + self.Q_op(x)
         return out

@@ -61,9 +61,15 @@ class LPOperands(NamedTuple):
     obj_scale: torch.Tensor
     nm_b: torch.Tensor
     nm_c: torch.Tensor
+    # row-sharded products (`parallel.sharded.row_sharded_operator`) of
+    # a workspace distributed by `LPWorkspace.shard`; A is then this
+    # rank's rows
+    shard: Optional[LinearOperator] = None
 
 
 def _ops_matvec(ops: LPOperands, x):
+    if ops.shard is not None:
+        return ops.shard.matvec(x)       # all_gather of the row blocks
     if ops.A is not None:
         return ops.A @ x
     if ops.ell is not None:
@@ -76,6 +82,8 @@ def _ops_matvec(ops: LPOperands, x):
 
 
 def _ops_rmatvec(ops: LPOperands, y):
+    if ops.shard is not None:
+        return ops.shard.rmatvec(y)      # all_reduce of the partials
     if ops.A is not None:
         return ops.A.T @ y
     if ops.ell_T is not None:
@@ -492,11 +500,56 @@ class LPWorkspace:
         self.h, self.g, self.g_th = self.ops.h, self.ops.g, self.ops.g_th
         return self
 
-    def shard(self, *args, **kw):
-        """Distributing the workspace over several cards is not ported."""
-        raise NotImplementedError(
-            "LPWorkspace.shard is not ported to abip_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 16)")
+    def shard(self, mesh, axis: str = "rows",
+              linsys: str = "cg") -> "LPWorkspace":
+        """Distribute this workspace over a device mesh: the whole ADMM
+        loop then iterates distributed (`abip_tpu/lp.py:571-620`).
+
+        `mesh` is the stand-in for the reference's JAX `Mesh`: a 1-D
+        `torch.distributed.device_mesh.DeviceMesh` with axis `axis`, on
+        the workspace's device type.  The call is SPMD: every rank of
+        the mesh builds the same workspace from the same full data and
+        calls `shard` and then `solve`, and every rank returns the whole
+        solution.  Each rank keeps its block of rows of the scaled dense
+        A; the two products with A become `all_gather(A_d x)` and
+        `all_reduce(A_d' y_d)` (`parallel.sharded.row_sharded_operator`),
+        the collectives GSPMD inserts for the reference.  The vectors of
+        length m (y, b, pr_scale, the preconditioner) stay replicated, a
+        layout choice, not a semantic one, so every other line of the
+        loop runs unchanged and every rank holds bit-equal iterates.
+
+        linsys="cg" (default): the KKT solve becomes PCG on
+        rho_y I + AA', each product two collectives; a dense factor is
+        dropped for the Jacobi diagonal 1/(rho_y + rowsum(A*A)).
+        linsys="dense": keep the cached Cholesky factor, replicated;
+        refused for a workspace built with linsys='cg'."""
+        from .parallel.sharded import (check_rows, mesh_group,
+                                       row_sharded_operator)
+
+        group, rank, size = mesh_group(mesh, axis, self.device)
+        check_rows(self.m, size)
+        ops = self.ops
+        if ops.A is None:
+            raise ValueError(
+                "shard() requires dense operands (BCSR/ELL sharding: use "
+                "the batched suite path instead)")
+        if linsys not in ("cg", "dense"):
+            raise ValueError(f"linsys must be 'cg' or 'dense'; got {linsys!r}")
+        if linsys == "dense" and ops.chol is None:
+            raise ValueError("no cached factor: workspace was built with "
+                             "linsys='cg'")
+        repl = {}
+        if linsys == "cg" and ops.chol is not None:
+            # direct -> PCG: Jacobi diagonal of rho_y I + AA'
+            # (`indirect.c:36-79`)
+            repl = dict(chol=None, M=1.0 / (self.stgs.rho_y
+                                            + (ops.A * ops.A).sum(dim=1)))
+            self.linsys_kind = "cg"
+        op = row_sharded_operator(ops.A, group, rank, size)
+        op.nnz = self.A_op.nnz
+        self.A_op = op
+        self.ops = ops._replace(A=op.local, shard=op, **repl)
+        return self
 
     # ------------------------------------------------------------------ #
     # host-side driver                                                   #

@@ -1,6 +1,6 @@
 """Batched LP solver, lanes on one device.
 
-Port of `abip_tpu/parallel/batched.py` (all but `mesh`).  Every instance
+Port of `abip_tpu/parallel/batched.py`.  Every instance
 is a lane: a row of `(B, ...)` tensors.  The outer IPM loop, the stage
 loop and the chunk loops run on the host.  A lane whose loop condition
 is false is frozen by mask, exactly as a vmapped `while_loop` freezes
@@ -37,6 +37,10 @@ Per lane:
 `solve_lp_batch(engine="sprint2")` runs two of these programs: the
 sprint engine to the mu switch, then "steps" or "delta" (`endgame`) on
 the unfinished lanes; above B=32 lanes in compacted rounds.
+
+With a `mesh` (`solve_lp_batch`, `solve_lp_suite`) the lanes split over
+the mesh's ranks, each rank solving its share on its own device, and
+the results are all-gathered in lane order (`parallel.sharded`).
 """
 from __future__ import annotations
 
@@ -74,12 +78,12 @@ class DeviceSolveResult(NamedTuple):
     dobj: torch.Tensor
     # raw internal state (scaled space), for the phase hand-off
     # (mu_stop / init_state)
-    u_raw: torch.Tensor
-    v_raw: torch.Tensor
-    mu: torch.Tensor
-    u_sum_raw: torch.Tensor
-    v_sum_raw: torch.Tensor
-    sj: torch.Tensor
+    u_raw: torch.Tensor = None
+    v_raw: torch.Tensor = None
+    mu: torch.Tensor = None
+    u_sum_raw: torch.Tensor = None
+    v_sum_raw: torch.Tensor = None
+    sj: torch.Tensor = None
 
 
 class LaneState(NamedTuple):
@@ -288,9 +292,6 @@ def _pick_avg(avg_crit, dom, u_sum, v_sum, u, v):
             torch.where(a, v_sum / dom[:, None], v))
 
 
-_NOT_PORTED = "is not ported to abip_tpu_torch yet (ROADMAP.md queue 1, item {})"
-
-
 def _check_options(precision, engine, cadence, qres_period, avg_period,
                    anchor_period, probe_period):
     """The reference's option checks (`batched.py:174-194`)."""
@@ -317,16 +318,28 @@ def _lanes_i32(x, B, dev):
     return torch.as_tensor(x, device=dev).to(i32).expand(B).clone()
 
 
-def device_solve_lp(As, bs, cs, *, eps=1e-6, max_ipm=200, max_admm=200_000,
-                    alpha=1.8, rho_y=1e-3, normalize=True, scale=1.0,
-                    ruiz_iter=10, hybrid_thresh=1000.0, dynamic_x=0.8,
-                    dynamic_eta=1.1, shrink_second=0.5, gamma0=2.0,
-                    sigma0=0.3, precision="f64", ir_steps=1,
-                    solver="cholesky", engine="steps", sprint_T=32,
-                    sprint_mu_switch=1e-3, qres_period=1, anchor_period=1000,
-                    avg_period=10, cadence="cond", probe_period=8,
-                    mu_stop=0.0, init_state=None,
-                    k_cap=None) -> DeviceSolveResult:
+def device_solve_lp(As, bs, cs, **opts) -> DeviceSolveResult:
+    """Solve one standard-form LP (A `(m, n)`, b `(m,)`, c `(n,)`
+    tensors), as the reference's `device_solve_lp` does, or a `(B, m, n)`
+    stack, one lane each (the reference's `vmap` of it).  One instance
+    runs as a lane of its own and its fields come back without the lane
+    axis.  The options are `_device_solve_lanes`'s."""
+    if As.dim() == 2:
+        r = _device_solve_lanes(As[None], bs[None], cs[None], **opts)
+        return DeviceSolveResult(*(None if f is None else f[0] for f in r))
+    return _device_solve_lanes(As, bs, cs, **opts)
+
+
+def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
+                        max_admm=200_000, alpha=1.8, rho_y=1e-3,
+                        normalize=True, scale=1.0, ruiz_iter=10,
+                        hybrid_thresh=1000.0, dynamic_x=0.8, dynamic_eta=1.1,
+                        shrink_second=0.5, gamma0=2.0, sigma0=0.3,
+                        precision="f64", ir_steps=1, solver="cholesky",
+                        engine="steps", sprint_T=32, sprint_mu_switch=1e-3,
+                        qres_period=1, anchor_period=1000, avg_period=10,
+                        cadence="cond", probe_period=8, mu_stop=0.0,
+                        init_state=None, k_cap=None) -> DeviceSolveResult:
     """Solve a `(B, m, n)` stack of standard-form LPs, one lane each.
 
     Options and defaults are the reference's (`device_solve_lp`, whose
@@ -711,21 +724,42 @@ def solve_lp_batch(As, bs, cs, mesh=None, device=None,
     the CPU).  Defaults to cadence="chunk".  Batches larger than `tile`
     (default 16) that it divides run as back-to-back tiles of `tile`
     lanes; tile=0 disables tiling.  engine="sprint2" runs the two-phase
-    driver (`_solve_lp_batch_twophase`)."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding " + _NOT_PORTED.format(19))
+    driver (`_solve_lp_batch_twophase`).
+
+    `mesh`, the stand-in for the reference's JAX `Mesh` with a "batch"
+    axis, is a 1-D `torch.distributed.device_mesh.DeviceMesh` with that
+    axis on `device`'s type.  The call is SPMD: every rank of the mesh
+    makes it with the same whole batch, rank r solves lanes
+    [r B/p, (r+1) B/p) on its own device, untiled and (sprint2) without
+    compaction, as the reference's mesh path runs, and every rank
+    returns the whole batch, all-gathered in lane order
+    (`parallel.sharded.lanes_over_mesh`).  B must be divisible by the
+    mesh size."""
     kw.setdefault("cadence", "chunk")
     tile = kw.pop("tile", 16)
     dev = resolve_device(device)
     As, bs, cs = (_as_f64(x, dev) for x in (As, bs, cs))
+    if mesh is not None:
+        from .sharded import lanes_over_mesh
+
+        return lanes_over_mesh(
+            mesh, dev, (As, bs, cs),
+            lambda *share: _solve_whole(*share, whole=True, **kw))
     B = As.shape[0]
     if tile and B > tile and B % tile == 0:
         outs = [solve_lp_batch(As[i:i + tile], bs[i:i + tile],
                                cs[i:i + tile], tile=tile, device=dev, **kw)
                 for i in range(0, B, tile)]
         return DeviceSolveResult(*[torch.cat(f) for f in zip(*outs)])
+    return _solve_whole(As, bs, cs, **kw)
+
+
+def _solve_whole(As, bs, cs, whole=False, **kw) -> DeviceSolveResult:
+    """One untiled batch: the two-phase driver for engine "sprint2"
+    (with `whole`, phase 2 in one run, never compacted), else
+    `device_solve_lp`."""
     if kw.get("engine") == "sprint2":
-        return _solve_lp_batch_twophase(As, bs, cs, **kw)
+        return _solve_lp_batch_twophase(As, bs, cs, whole=whole, **kw)
     kw.pop("endgame", None)   # sprint2-only knob
     return device_solve_lp(As, bs, cs, **kw)
 
@@ -744,15 +778,16 @@ def _resume_state(r: DeviceSolveResult):
             r.u_sum_raw, r.v_sum_raw, r.sj)
 
 
-def _solve_lp_batch_twophase(As, bs, cs, **kw) -> DeviceSolveResult:
+def _solve_lp_batch_twophase(As, bs, cs, whole=False,
+                             **kw) -> DeviceSolveResult:
     """sprint2 (`batched.py:939-1059`): phase 1 drives every lane with
     the sprint engine (K6 chunks) until its barrier passes
     `sprint_mu_switch` (default 1e-4); phase 2 continues the unfinished
     lanes with `endgame` "steps" (default) or "delta", from the 9-tuple
-    resume state.  Up to B=32 phase 2 is one whole-batch run; above, it
-    runs in rounds of at most `compact_period` ADMM iterations, the
-    unfinished lanes compacted into the next power-of-two bucket
-    between rounds."""
+    resume state.  Up to B=32, or with `whole` (a rank's share of a
+    mesh), phase 2 is one whole-batch run; above, it runs in rounds of
+    at most `compact_period` ADMM iterations, the unfinished lanes
+    compacted into the next power-of-two bucket between rounds."""
     dev = As.device
     kw.pop("engine")
     switch = kw.pop("sprint_mu_switch", 1e-4)
@@ -765,13 +800,14 @@ def _solve_lp_batch_twophase(As, bs, cs, **kw) -> DeviceSolveResult:
     compact_period = kw.pop("compact_period", 16384)
     kw1 = dict(kw, engine="sprint", sprint_mu_switch=switch, mu_stop=switch,
                precision=kw.get("precision", "mixed"))
-    r1 = solve_lp_batch(As, bs, cs, device=dev, **kw1)
+    r1 = solve_lp_batch(As, bs, cs, device=dev, tile=0 if whole else 16,
+                        **kw1)
     done1 = r1.status != 0
     if bool(done1.all()):
         return r1
     kw2 = dict(kw, engine="delta" if endgame == "delta" else "steps")
     max_admm = kw.get("max_admm", 200_000)
-    if As.shape[0] <= 32:
+    if whole or As.shape[0] <= 32:
         r2 = device_solve_lp(As, bs, cs, init_state=_resume_state(r1),
                              k_cap=max_admm, **kw2)
         return _select(done1, r1, r2)
@@ -835,7 +871,8 @@ def pad_instances(problems, dtype=torch.float64, device=None):
 
 def solve_lp_suite(problems, mesh=None, device=None, **kw):
     """Solve a heterogeneous list of (A, b, c) LPs as one padded batch on
-    `device` (default: the CUDA card).
+    `device` (default: the CUDA card), over `mesh` where given (see
+    `solve_lp_batch`).
 
     Returns a list of per-instance dicts with the unpadded solutions."""
     dev = resolve_device(device)

@@ -46,29 +46,27 @@ def solve_lp_pool(problems, *, workers: int | None = None, device=None,
     """Solve a suite of standard-form LPs `(A, b, c)` concurrently on
     `device` (default: the CUDA card).
 
-    Each instance runs `device_solve_lp` with options `kw` as a one-lane
-    batch in its own pool thread.  Returns a list of one-lane
-    `DeviceSolveResult`s (lane 0 of each solve) in input order."""
+    Each instance runs `device_solve_lp` with options `kw` on its own
+    (one lane) in its own pool thread.  Returns a list of one-instance
+    `DeviceSolveResult`s in input order."""
     dev = resolve_device(device)
 
     def t(x):
-        return torch.as_tensor(np.asarray(x, dtype=np.float64),
-                               device=dev)[None]
+        return torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev)
 
     problems = [tuple(t(x) for x in p) for p in problems]
     local = threading.local()
 
     def solve(p):
         if dev.type != "cuda":
-            r = device_solve_lp(*p, **kw)
-            return DeviceSolveResult(*[f[0] for f in r])
+            return device_solve_lp(*p, **kw)
         stream = getattr(local, "stream", None)
         if stream is None:
             stream = local.stream = torch.cuda.Stream(dev)
         # the inputs were written on the default stream
         stream.wait_stream(torch.cuda.default_stream(dev))
         with torch.cuda.stream(stream):
-            r = DeviceSolveResult(*[f[0] for f in device_solve_lp(*p, **kw)])
+            r = device_solve_lp(*p, **kw)
         stream.synchronize()
         return r
 

@@ -101,7 +101,12 @@ class StreamResult(NamedTuple):
 def lp_setup(As, bs, cs, rho_y=1e-3, scale=1.0, ruiz_iter=10) -> LPLaneData:
     """Each lane's init phase (`segmented.py:100-138`): pc+Ruiz
     equilibration, b/c normalization, the normal matrix's explicit
-    inverse from its f64 Cholesky factor, h/g/g_th."""
+    inverse from its f64 Cholesky factor, h/g/g_th.
+
+    The signature is lane-first by design: the reference's `lp_setup`
+    takes one instance and is `vmap`ped; here `(B, m, n)`, `(B, m)`,
+    `(B, n)` stacks go in and an `LPLaneData` stack comes out, the form
+    the stream splices lanes into."""
     As, bs, cs = As.to(f64), bs.to(f64), cs.to(f64)
     B, m, n = As.shape
     nm_b0 = torch.linalg.vector_norm(bs, dim=-1)

@@ -127,12 +127,20 @@ class CooOperator(NamedTuple):
 
 
 def coo_matvec(pattern: SharedPattern, vals, x):
-    """y = A x over a lane stack of values `(B, nnz)` and `(B, n)` x."""
+    """y = A x over a lane stack of values `(B, nnz)` and `(B, n)` x.
+
+    Lane-first and on a `SharedPattern` by design, where the reference's
+    `coo_matvec(rows, cols, vals, x, m)` takes one lane's COO triplets
+    and is `vmap`ped: the pattern, sorted once into padded row tables,
+    replaces rows, cols and m, and makes the product a gather and a
+    fixed-order sum."""
     return CooOperator.of(pattern, vals).matvec(x)
 
 
 def coo_rmatvec(pattern: SharedPattern, vals, y):
-    """x = A' y over the same pattern."""
+    """x = A' y over the same pattern; lane-first on a `SharedPattern`
+    by design, as `coo_matvec` (the reference's
+    `coo_rmatvec(rows, cols, vals, y, n)`)."""
     return CooOperator.of(pattern, vals).rmatvec(y)
 
 

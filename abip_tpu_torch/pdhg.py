@@ -37,10 +37,10 @@ import numpy as np
 import torch
 
 from .cones import ConeLayout, cone_operands, cone_project
-from .device import ieee_f32, resolve_device
+from .device import float_dtype, ieee_f32, resolve_device
 from .lp import LPSolution
 from .ops.admm_delta import _mv, _rmv
-from .parallel.batched import _NOT_PORTED, _select
+from .parallel.batched import _select
 from .scaling import equilibrate, equilibrate_conic
 from .settings import Status
 
@@ -318,10 +318,11 @@ def _check_precision(precision):
                          f"got {precision!r}")
 
 
-def _lanes(dev, *xs):
-    return tuple(torch.as_tensor(np.asarray(x, dtype=np.float64), device=dev)
+def _lanes(dev, *xs, dtype=f64):
+    return tuple(torch.as_tensor(np.asarray(x, dtype=np.float64),
+                                 device=dev).to(dtype)
                  if not isinstance(x, torch.Tensor)
-                 else x.to(device=dev, dtype=f64) for x in xs)
+                 else x.to(device=dev, dtype=dtype) for x in xs)
 
 
 def _final_status(st: PDHGState):
@@ -338,17 +339,21 @@ def _final_status(st: PDHGState):
 
 
 def solve_lp_pdhg(A, b, c, eps: float = 1e-6, max_iters: int = 200_000,
-                  check_period: int = 256, precision: str = "f64",
-                  device=None) -> LPSolution:
+                  check_period: int = 256, dtype=torch.float64,
+                  precision: str = "f64", device=None) -> LPSolution:
     """Solve `min c'x s.t. Ax = b, x >= 0` with restarted PDHG on
-    `device` (default: the CUDA card).  The returned `LPSolution` reports
-    PDHG iterations in `admm_iters` and the candidate iterate whose
-    residuals it reports, on every exit path."""
+    `device` (default: the CUDA card).  A, b and c are cast to `dtype`
+    (a torch, numpy or JAX-named float type; `device.float_dtype`) and
+    the solve runs in it, float32 products in IEEE f32, as the
+    reference's `dtype` does.  The returned `LPSolution` reports PDHG
+    iterations in `admm_iters` and the candidate iterate whose residuals
+    it reports, on every exit path."""
     _check_precision(precision)
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    A, b, c = _lanes(dev, A, b, c)
-    run_args = _setup(A[None], b[None], c[None])
+    A, b, c = _lanes(dev, A, b, c, dtype=float_dtype(dtype))
+    with ieee_f32():
+        run_args = _setup(A[None], b[None], c[None])
     sd_E, sd_D = run_args[6], run_args[7]
     setup = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -356,7 +361,8 @@ def solve_lp_pdhg(A, b, c, eps: float = 1e-6, max_iters: int = 200_000,
                    precision=precision)
     status, head = _final_status(st)
     y = st.y_cand / sd_D
-    s = c[None] - _rmv(A[None], y)
+    with ieee_f32():
+        s = c[None] - _rmv(A[None], y)
     x = (st.x_cand / sd_E)[0].cpu().numpy()
     solve = time.perf_counter() - t1
     return LPSolution(
@@ -369,19 +375,22 @@ def solve_lp_pdhg(A, b, c, eps: float = 1e-6, max_iters: int = 200_000,
 
 def solve_qcp_pdhg(A, b, c, cones, eps: float = 1e-6,
                    max_iters: int = 200_000, check_period: int = 256,
-                   precision: str = "f64", device=None):
+                   dtype=torch.float64, precision: str = "f64",
+                   device=None):
     """Solve `min c'x s.t. Ax = b, x in K` with restarted PDHG on
-    `device` (default: the CUDA card): `solve_lp_pdhg`'s loop with
-    `cone_project` in the x-update and dual-cone distances in the
-    residuals and certificates.  Q is not supported."""
+    `device` (default: the CUDA card), in `dtype` as `solve_lp_pdhg`:
+    its loop with `cone_project` in the x-update and dual-cone distances
+    in the residuals and certificates.  Q is not supported."""
     from .qcp import ConicSolution
 
     _check_precision(precision)
     dev = resolve_device(device)
     t0 = time.perf_counter()
-    A, b, c = _lanes(dev, A, b, c)
+    A, b, c = _lanes(dev, A, b, c, dtype=float_dtype(dtype))
     cones.validate_dim(A.shape[1])
-    run_args, (sc_b, sc_c) = _setup_conic(A[None], b[None], c[None], cones)
+    with ieee_f32():
+        run_args, (sc_b, sc_c) = _setup_conic(A[None], b[None], c[None],
+                                              cones)
     sd_E, sd_D = run_args[6], run_args[7]
     setup = time.perf_counter() - t0
     t1 = time.perf_counter()
@@ -390,7 +399,8 @@ def solve_qcp_pdhg(A, b, c, cones, eps: float = 1e-6,
     status, head = _final_status(st)
     x = st.x_cand / (sd_E * sc_b[:, None])
     y = st.y_cand / (sd_D * sc_c[:, None])
-    s = c[None] - _rmv(A[None], y)
+    with ieee_f32():
+        s = c[None] - _rmv(A[None], y)
     solve = time.perf_counter() - t1
     return ConicSolution(
         x=x[0].cpu().numpy(), y=y[0].cpu().numpy(), s=s[0].cpu().numpy(),
@@ -407,14 +417,23 @@ def solve_lp_pdhg_batch(As, bs, cs, eps: float = 1e-6,
     """Solve a stacked batch of same-shape LPs with restarted PDHG on
     `device` (default: the CUDA card).  As: (B, m, n); bs: (B, m); cs:
     (B, n).  Returns the final `PDHGState` (fields lead with the lane
-    axis); `status == 1` marks solved lanes."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding " + _NOT_PORTED.format(19))
+    axis); `status == 1` marks solved lanes.
+
+    `mesh`, the stand-in for the reference's JAX `Mesh` with a "batch"
+    axis, is a 1-D `torch.distributed.device_mesh.DeviceMesh` with that
+    axis: an SPMD call, every rank passing the whole batch, rank r
+    solving lanes [r B/p, (r+1) B/p) and every rank returning the whole
+    state, all-gathered in lane order (`parallel.sharded.lanes_over_mesh`;
+    B divisible by the mesh size)."""
     _check_precision(precision)
     dev = resolve_device(device)
     As, bs, cs = _lanes(dev, As, bs, cs)
-    return _pdhg_run(*_setup(As, bs, cs), eps, max_iters, check_period,
-                     precision=precision)
+
+    def run(As, bs, cs):
+        return _pdhg_run(*_setup(As, bs, cs), eps, max_iters, check_period,
+                         precision=precision)
+
+    return _over_mesh(mesh, dev, (As, bs, cs), run)
 
 
 def solve_qcp_pdhg_batch(As, bs, cs, cones, eps: float = 1e-6,
@@ -422,14 +441,25 @@ def solve_qcp_pdhg_batch(As, bs, cs, cones, eps: float = 1e-6,
                          precision: str = "mixed", mesh=None,
                          device=None) -> PDHGState:
     """Batched conic PDHG: a stacked batch of same-shape, same-cone
-    problems on `device` (default: the CUDA card).  Returns the final
-    `PDHGState`."""
-    if mesh is not None:
-        raise NotImplementedError("mesh sharding " + _NOT_PORTED.format(19))
+    problems on `device` (default: the CUDA card), over `mesh` as in
+    `solve_lp_pdhg_batch`.  Returns the final `PDHGState`."""
     _check_precision(precision)
     dev = resolve_device(device)
     As, bs, cs = _lanes(dev, As, bs, cs)
-    run_args, (sc_b, sc_c) = _setup_conic(As, bs, cs, cones)
-    return _pdhg_run(*run_args, eps, max_iters, check_period,
-                     precision=precision, cones=cones, rho_b=sc_b,
-                     rho_c=sc_c)
+
+    def run(As, bs, cs):
+        run_args, (sc_b, sc_c) = _setup_conic(As, bs, cs, cones)
+        return _pdhg_run(*run_args, eps, max_iters, check_period,
+                         precision=precision, cones=cones, rho_b=sc_b,
+                         rho_c=sc_c)
+
+    return _over_mesh(mesh, dev, (As, bs, cs), run)
+
+
+def _over_mesh(mesh, dev, stacks, run) -> PDHGState:
+    """`run(*stacks)`, or with a mesh each rank's share of the lanes."""
+    if mesh is None:
+        return run(*stacks)
+    from .parallel.sharded import lanes_over_mesh
+
+    return lanes_over_mesh(mesh, dev, stacks, run)

@@ -409,11 +409,38 @@ class ConicWorkspace:
         self._set_rhs_terms()
         return self
 
-    def shard(self, *args, **kw):
-        """Distributing the workspace over several cards is not ported."""
-        raise NotImplementedError(
-            "ConicWorkspace.shard is not ported to abip_tpu_torch yet "
-            "(ROADMAP.md queue 1, item 16)")
+    def shard(self, mesh, axis: str = "rows") -> "ConicWorkspace":
+        """Distribute this conic workspace over a device mesh: the whole
+        DR/ADMM loop then iterates distributed (`abip_tpu/qcp.py:555-589`,
+        the conic counterpart of `LPWorkspace.shard`).
+
+        `mesh` is the stand-in for the reference's JAX `Mesh`: a 1-D
+        `torch.distributed.device_mesh.DeviceMesh` with axis `axis`, on
+        the workspace's device type.  The call is SPMD: every rank builds
+        the same workspace from the same full data and calls `shard` and
+        then `solve`, and every rank returns the whole solution.
+
+        Requires the matrix-free CG Schur path (`linsys='cg'`) with a
+        dense A, m divisible by the mesh size.  The row-sharded operator
+        (`parallel.sharded.row_sharded_operator`: A x all-gathered, A' y
+        all-reduced) serves the loop and the CG Schur solver.  ry_inv and
+        b stay replicated."""
+        from .parallel.sharded import (check_rows, mesh_group,
+                                       row_sharded_operator)
+
+        group, rank, size = mesh_group(mesh, axis, self.device)
+        if not isinstance(self.solver, CGSchurSolver):
+            raise ValueError(
+                "shard() requires the CG Schur path; rebuild the "
+                "workspace with settings.linsys='cg'")
+        if self.A is None:
+            raise ValueError(
+                "shard() requires a dense A (matrix-free operators carry "
+                "their own distribution)")
+        check_rows(self.m, size)
+        self.A_op = row_sharded_operator(self.A, group, rank, size)
+        self.solver.A_op = self.A_op
+        return self
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x), dtype=self.dtype,

@@ -112,7 +112,19 @@ duration:
    then every netlib_mini ADMM solve of phase 7); `solve_lp_grad` on a
    smoke LP (the gradient against y and central differences, one
    batched forward) and `solve_lasso_grad` (against a central
-   difference).
+   difference);
+10. the multi-card layer on a one-rank NCCL group (`one_rank_nccl`: NCCL
+   that cannot form fails the run, no gloo fallback), each at full size
+   against its unsharded run: `make_sharded_kkt_solver` on the host
+   LP's A made dense (m=1000, n=10000, f64) against a dense solve of the
+   KKT system on the card; `LPWorkspace.shard(linsys="dense")` on that
+   instance (equal status and counts, pobj to 1e-9, within 1e-5 of
+   HiGHS) and `shard(linsys="cg")` at m=200; `ConicWorkspace.shard` on a
+   dim-1020 instance through the CG Schur solver; `solve_lp_batch(mesh=)`
+   on the B=16 smoke batch (K1, counted as `mesh_launches`) and
+   `solve_lp_pdhg_batch(mesh=)` on phase 9's batch.  It prints each wall
+   and the ratio sharded/unsharded: on one rank the collectives'
+   overhead, not scaling.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -124,11 +136,12 @@ Each main path runs with its kernels' launch counts set to 0 just
 before it and read just after (K5 also on the MPS route of phase 7,
 `mps_route_launches`; K2, K3 and K4 on phase 8's paths,
 `batched_rest_launches`; K1 in phase 9's thread pool,
-`pool_launches`).  Exits nonzero, printing no result, without a card or
+`pool_launches`, and over phase 10's mesh, `mesh_launches`).  Exits nonzero, printing no result, without a card or
 on any failure.  The last three lines are the kernel summary
 (JSON, with each kernel's bound on this card), the card's name and power
 limit, and the result (JSON).
 """
+import contextlib
 import json
 import os
 import subprocess
@@ -2681,7 +2694,8 @@ def phase_pdhg(torch, dev, card):
     against optima.json (a file without one against the ADMM solve of
     its .cbf, phase 7's certified route), and a B=16 smoke batch through
     `solve_lp_pdhg_batch(precision="mixed")` against HiGHS; each Solved
-    within 1e-5 relative."""
+    within 1e-5 relative.  Returns the batch's (stacks, state, wall) for
+    phase 10."""
     import glob
     import time
 
@@ -2739,6 +2753,7 @@ def phase_pdhg(torch, dev, card):
           f"gap {worst:.3e} (limit 1e-5)")
     print(f"PDHG suites [{card}]: 12 .mps in {mps_s:.1f} s, 12 .cbf in "
           f"{cbf_s:.1f} s")
+    return stacks, st, sec
 
 
 def phase_crossover(torch, dev, card, mps_solves):
@@ -2875,6 +2890,213 @@ def phase_grad(torch, dev, card):
 # ---------------------------------------------------------------------------
 
 # `benchmarks/results/r05_lp_m1000_tpu.json`'s at-scale LP shape
+# phase 10: the multi-card layer on a one-rank NCCL group
+MESH_RHO_Y = 1e-3
+MESH_KKT_ATOL = 1e-7        # the reference's bar (`tests/test_parallel.py:72-84`)
+MESH_DENSE_REL = 1e-9       # sharded dense pobj against the unsharded
+MESH_BATCH_REL = 1e-10      # meshed batch pobj against the unmeshed
+MESH_PDHG_RTOL = 1e-8       # the reference's (`tests/test_pdhg.py:135-142`)
+MESH_CONIC_SEED = 8730
+
+
+@contextlib.contextmanager
+def one_rank_nccl(device_index=0):
+    """A one-rank NCCL process group on card `device_index` (its
+    `FileStore` in a temporary directory), checked with one
+    `all_reduce`; yields `mesh(axis)`, a 1-D `DeviceMesh("cuda")` with
+    that axis, and destroys the group on exit.  NCCL that cannot form
+    raises: there is no gloo fallback.
+
+    Unless the caller's environment says otherwise, PyTorch's NCCL
+    flight recorder and heartbeat monitor are off
+    (`TORCH_FR_BUFFER_SIZE=0`, `TORCH_NCCL_ENABLE_MONITORING=0`):
+    a sharded host solve issues a collective every few operations, and
+    with both on (PyTorch's defaults) phase 10's sharded solves took
+    2.7-3.2x their unsharded walls on one rank."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    os.environ.setdefault("TORCH_FR_BUFFER_SIZE", "0")
+    os.environ.setdefault("TORCH_NCCL_ENABLE_MONITORING", "0")
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.set_device(device_index)
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            if dist.get_backend() != "nccl":
+                raise RuntimeError(f"backend {dist.get_backend()}, not nccl")
+            probe = torch.ones(1, device="cuda")
+            dist.all_reduce(probe)
+            torch.cuda.synchronize()
+            if probe.item() != 1.0:
+                raise RuntimeError("a one-rank all_reduce changed its input")
+            yield lambda axis: init_device_mesh(
+                "cuda", (1,), mesh_dim_names=(axis,))
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_multi_card(torch, dev, card, pdhg_batch):
+    """The multi-card layer (`parallel.sharded`, `LPWorkspace.shard`,
+    `ConicWorkspace.shard`, the batch drivers' `mesh=`) on a one-rank
+    NCCL group, each at full size and against its unsharded run: the
+    KKT solver on the host LP's A made dense against an f64 dense solve
+    of the KKT system; the dense host LP sharded with linsys "dense"
+    (equal status and counts, pobj to 1e-9, within 1e-5 of HiGHS) and,
+    at m=200, with "cg" (ADMM within max(5, 5%)); a dim-1020 conic
+    instance through CG sharded (Solved within 1e-5 of its optimum,
+    ADMM within max(5, 5%)); the B=16 smoke batch over the mesh (K1;
+    statuses and counts equal, pobj to 1e-10) and phase 9's PDHG batch
+    (pobj to rtol 1e-8).  On one rank the ratios measure the
+    collectives' overhead, not scaling.  Returns K1's launches in the
+    meshed batch."""
+    import scipy.sparse as sp
+
+    from bench import reference_smoke_lp
+
+    from abip_tpu_torch import (ConeSpec, ConicWorkspace, LPWorkspace,
+                                Settings, conic_defaults)
+    from abip_tpu_torch.linsys.schur import CGSchurSolver
+    from abip_tpu_torch.ops.admm_delta import delta_chunk_cuda
+    from abip_tpu_torch.parallel import solve_lp_batch
+    from abip_tpu_torch.parallel.sharded import make_sharded_kkt_solver
+    from abip_tpu_torch.pdhg import solve_lp_pdhg_batch
+    from abip_tpu_torch.utils.timing import wall_s
+
+    def ratio(label, base_s, shard_s):
+        print(f"mesh {label} [{card}]: unsharded {base_s:.3f} s, sharded "
+              f"{shard_s:.3f} s, ratio {shard_s / base_s:.3f}")
+
+    def counts_close(label, base, sh):
+        if abs(sh.admm_iters - base.admm_iters) > max(
+                5, 0.05 * base.admm_iters):
+            raise AssertionError(f"mesh {label}: ADMM {sh.admm_iters} vs "
+                                 f"unsharded {base.admm_iters}")
+
+    with one_rank_nccl() as mesh:
+        rows, batch = mesh("rows"), mesh("batch")
+
+        A, b, c = reference_smoke_lp(seed=HOST_SEEDS[0], **HOST_LP)
+        m, n = A.shape
+        rng = np.random.default_rng(11)
+        w_y, w_x = rng.standard_normal(m), rng.standard_normal(n)
+        sec, (z_y, z_x, its) = wall_s(lambda: make_sharded_kkt_solver(
+            A, MESH_RHO_Y, rows)(w_y, w_x))
+        At = torch.as_tensor(A, device=dev)
+        K = torch.cat([torch.cat([MESH_RHO_Y * torch.eye(
+            m, dtype=At.dtype, device=dev), At], 1), torch.cat(
+            [At.T, -torch.eye(n, dtype=At.dtype, device=dev)], 1)])
+        z = torch.linalg.solve(K, torch.as_tensor(
+            np.concatenate([w_y, w_x]), device=dev))
+        del K
+        err = max(float((z_y - z[:m]).abs().max()),
+                  float((z_x - z[m:]).abs().max()))
+        print(f"mesh KKT solver m={m} n={n} dense A (f64) [{card}]: {its} "
+              f"CG iterations, {sec:.3f} s, max |z - dense KKT solve| "
+              f"{err:.3e} (limit {MESH_KKT_ATOL}, largest |z| "
+              f"{float(z.abs().max()):.3e})")
+        if not err <= MESH_KKT_ATOL:
+            raise AssertionError("mesh KKT solver: off the dense solve")
+
+        def host(A, b, c, shard=None, **kw):
+            ws = LPWorkspace(A, b, c, Settings(eps=HOST_EPS, **kw))
+            if shard is not None:
+                ws.shard(rows, linsys=shard)
+            return ws.solve()
+
+        base_s, base = wall_s(lambda: host(A, b, c))
+        sh_s, sh = wall_s(lambda: host(A, b, c, shard="dense"))
+        fun, hs = highs(sp.csr_matrix(A), b, c)
+        rel = abs(sh.pobj - fun) / max(1.0, abs(fun))
+        print(f"mesh host LP m={m} dense, shard(linsys='dense'): "
+              f"{sh.status_name}, IPM {sh.ipm_iters}, ADMM {sh.admm_iters} "
+              f"(unsharded {base.status_name}, {base.ipm_iters}, "
+              f"{base.admm_iters}), pobj rel to unsharded "
+              f"{abs(sh.pobj - base.pobj) / abs(base.pobj):.3e} (limit "
+              f"{MESH_DENSE_REL}), vs HiGHS {rel:.3e} (limit 1e-5)")
+        ratio(f"host LP m={m} dense", base_s, sh_s)
+        if (sh.status_name != "Solved" or base.status_name != "Solved"
+                or (sh.ipm_iters, sh.admm_iters)
+                != (base.ipm_iters, base.admm_iters)
+                or abs(sh.pobj - base.pobj) > MESH_DENSE_REL * abs(base.pobj)
+                or rel > 1e-5):
+            raise AssertionError("mesh host LP dense: off the unsharded "
+                                 "solve or HiGHS")
+
+        A2, b2, c2 = host_lp(22, **HOST_CG)
+        A2 = A2.toarray()
+        base_s, base = wall_s(lambda: host(A2, b2, c2, linsys="cg"))
+        sh_s, sh = wall_s(lambda: host(A2, b2, c2, shard="cg",
+                                       linsys="cg"))
+        print(f"mesh host LP cg m=200: {sh.status_name}, ADMM "
+              f"{sh.admm_iters} (unsharded {base.admm_iters}, limit max(5, "
+              f"5%)), avg CG {sh.avg_cg_iters:.2f}")
+        ratio("host LP cg m=200", base_s, sh_s)
+        if sh.status_name != "Solved":
+            raise AssertionError(f"mesh host LP cg: {sh.status_name}")
+        counts_close("host LP cg", base, sh)
+
+        cones = ConeSpec(**CONIC_SPEC)
+        _, Ac, bc, cc, _, star = randcone("mesh", CONIC_M, cones,
+                                          MESH_CONIC_SEED)
+
+        def conic(shard):
+            ws = ConicWorkspace(Ac, bc, cc, cones, settings=conic_defaults(
+                eps=FRONT_EPS, linsys="cg"))
+            if not isinstance(ws.solver, CGSchurSolver):
+                raise AssertionError("linsys='cg' did not take the CG Schur "
+                                     "solver")
+            if shard:
+                ws.shard(rows)
+            return ws.solve()
+
+        base_s, base = wall_s(lambda: conic(False))
+        sh_s, sh = wall_s(lambda: conic(True))
+        front_check(f"mesh conic dim-1020 CG shard (avg CG "
+                    f"{sh.avg_cg_iters:.1f}; unsharded ADMM "
+                    f"{base.admm_iters})", sh, star, sh_s)
+        ratio("conic dim-1020 CG", base_s, sh_s)
+        counts_close("conic CG", base, sh)
+
+        data, stacks = smoke_batch(1000)
+        base_s, base = wall_s(lambda: solve(torch, stacks, dev))
+        delta_chunk_cuda.launches = 0
+        sh_s, sh = wall_s(lambda: solve_lp_batch(*stacks, mesh=batch,
+                                                 device=dev, **SOLVE_KW))
+        launches = delta_chunk_cuda.launches
+        same = all(torch.equal(getattr(sh, f), getattr(base, f))
+                   for f in ("status", "ipm_iters", "admm_iters"))
+        prel = float(((sh.pobj - base.pobj).abs() / base.pobj.abs()).max())
+        print(f"mesh LP batch B={B} delta over the mesh: statuses "
+              f"{sh.status.tolist()}, ADMM total {int(sh.admm_iters.sum())}"
+              f", counts equal to the unmeshed batch: {same}, max pobj rel "
+              f"{prel:.3e} (limit {MESH_BATCH_REL}), K1 launches "
+              f"{launches}")
+        ratio(f"LP batch B={B} delta", base_s, sh_s)
+        if not same or not prel <= MESH_BATCH_REL or launches <= 0 or bool(
+                (sh.status != 1).any()):
+            raise AssertionError("mesh LP batch: off the unmeshed batch")
+
+        stacks9, st9, base_s = pdhg_batch
+        sh_s, st = wall_s(lambda: solve_lp_pdhg_batch(
+            *stacks9, mesh=batch, **PDHG_BATCH_KW))
+        prel = float(((st.pobj - st9.pobj).abs() / st9.pobj.abs()).max())
+        print(f"mesh PDHG batch B={B} mixed over the mesh: statuses "
+              f"{st.status.tolist()}, iterations equal: "
+              f"{torch.equal(st.k, st9.k)}, max pobj rel {prel:.3e} "
+              f"(limit {MESH_PDHG_RTOL})")
+        ratio(f"PDHG batch B={B}", base_s, sh_s)
+        if not torch.equal(st.status, st9.status) or not prel <= \
+                MESH_PDHG_RTOL:
+            raise AssertionError("mesh PDHG batch: off the unmeshed batch")
+    return launches
+
+
 HOST_LP = dict(m=1000, n_rand=9000, density=0.1)
 HOST_SEEDS = (11, 12, 13)
 HOST_CG = dict(m=200, n_rand=1800, density=0.1)
@@ -3378,11 +3600,17 @@ def main():
     phase("PageRank families", phase_pagerank, torch, dev, card)
     phase("stream against fixed batches", phase_stream, torch, dev, card)
     k1_pool = phase("thread pool", phase_pool, torch, dev, card)
-    phase("PDHG", phase_pdhg, torch, dev, card)
+    pdhg_batch = phase("PDHG", phase_pdhg, torch, dev, card)
     phase("crossover", phase_crossover, torch, dev, card, mps_solves)
     phase("differentiation", phase_grad, torch, dev, card)
     print(f"phase 9 (the rest of the single-card port): "
           f"{time.perf_counter() - t9:.1f} s")
+
+    t10 = time.perf_counter()
+    k1_mesh = phase("multi-card layer", phase_multi_card, torch, dev, card,
+                    pdhg_batch)
+    print(f"phase 10 (the multi-card layer): "
+          f"{time.perf_counter() - t10:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, err, times, library=None,
@@ -3398,7 +3626,7 @@ def main():
     print(json.dumps({"kernels": [
         entry("delta_cluster_kernel", "admm_delta.cu",
               "abip_tpu/ops/admm_delta.py:287", k1_launches, k1_err, k1,
-              pool_launches=k1_pool),
+              pool_launches=k1_pool, mesh_launches=k1_mesh),
         entry("conic_ladder_cluster_kernel", "conic_ladder.cu",
               "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2,
               batched_rest_launches=rest["K2"]),

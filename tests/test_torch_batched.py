@@ -139,11 +139,13 @@ def test_pad_instances_and_suite():
 
 @pytest.mark.parametrize("opts", [dict(mesh=object())])
 def test_unported_options_raise(opts):
-    """Options of paths this port does not run raise and name their
-    ROADMAP item; none falls back to another engine."""
+    """Every option of the reference's is ported; a `mesh` that is not
+    a `DeviceMesh` (the stand-in for the reference's JAX `Mesh`, held to
+    the reference in `tests/test_torch_mesh.py`) raises rather than
+    fall back to an unmeshed solve."""
     kw = dict(KW, **opts)
     A, b, c = random_lp(np.random.default_rng(0), m=3, n=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         batched.solve_lp_batch(A[None], b[None], c[None], **DEV, **kw)
 
 

@@ -26,7 +26,10 @@ The rest of the single-card port (no kernel of its own; K1 through the
 thread pool): the same-pattern sparse family driver deterministic on the
 card, the lane-swap stream and the pool against serial solves, PDHG's
 mixed products in IEEE f32, and the differentiable LP map and its
-minimum-norm adjoint solve against the CPU.
+minimum-norm adjoint solve against the CPU.  The multi-card layer on a
+one-rank NCCL group (`chip_smoke.one_rank_nccl`): the sharded dense LP
+and the batch over the mesh against their unsharded runs, and a group
+that cannot form failing, never falling back to gloo.
 """
 import functools
 import os
@@ -956,3 +959,65 @@ def test_min_norm_adjoint_on_card(cuda_device):
     assert torch.isfinite(card).all()
     np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0,
                                atol=1e-9 * float(cpu.abs().max()))
+
+
+# --------------------------------------------------------------------- #
+# The multi-card layer on a one-rank NCCL group (the card's machine has   #
+# one card; the multi-rank semantics are held on gloo CPU groups by      #
+# `tests/test_torch_sharded.py` and `tests/test_torch_mesh.py`)          #
+# --------------------------------------------------------------------- #
+@pytest.mark.cuda
+def test_workspace_shard_on_one_rank_nccl(cuda_device):
+    """`LPWorkspace.shard(linsys="dense")` over a one-rank NCCL mesh
+    reproduces the unsharded dense solve on the card: equal status, IPM
+    and ADMM counts, pobj to 1e-9 relative."""
+    from abip_tpu_torch import LPWorkspace, Settings
+    from bench import reference_smoke_lp
+
+    A, b, c = reference_smoke_lp(m=40, n_rand=360, seed=5)
+    base = LPWorkspace(A, b, c, Settings(eps=1e-6)).solve()
+    with chip_smoke.one_rank_nccl() as mesh:
+        ws = LPWorkspace(A, b, c, Settings(eps=1e-6))
+        sh = ws.shard(mesh("rows"), linsys="dense").solve()
+        assert ws.ops.shard is not None and ws.ops.chol is not None
+    assert sh.status_name == base.status_name == "Solved"
+    assert (sh.ipm_iters, sh.admm_iters) == (base.ipm_iters, base.admm_iters)
+    assert sh.pobj == pytest.approx(base.pobj, rel=1e-9)
+
+
+@pytest.mark.cuda
+def test_batch_over_one_rank_nccl(cuda_device):
+    """`solve_lp_batch(mesh=...)` (K1) over a one-rank NCCL mesh: the
+    unmeshed batch's statuses and counts, pobj to 1e-10 relative."""
+    from abip_tpu_torch.parallel import solve_lp_batch
+
+    _, stacks = chip_smoke.smoke_batch(720, 4)
+    base = solve_lp_batch(*stacks, **chip_smoke.SOLVE_KW)
+    with chip_smoke.one_rank_nccl() as mesh:
+        delta.delta_chunk_cuda.launches = 0
+        sh = solve_lp_batch(*stacks, mesh=mesh("batch"),
+                            **chip_smoke.SOLVE_KW)
+        assert delta.delta_chunk_cuda.launches > 0
+    for f in ("status", "ipm_iters", "admm_iters"):
+        assert torch.equal(getattr(sh, f), getattr(base, f)), f
+    assert (sh.status == 1).all()
+    torch.testing.assert_close(sh.pobj, base.pobj, rtol=1e-10, atol=0)
+
+
+@pytest.mark.cuda
+def test_nccl_that_cannot_form_fails(cuda_device):
+    """With NCCL pointed at a network interface that does not exist, the
+    one-rank group's probe raises and the process fails: the group never
+    forms, and nothing falls back to gloo."""
+    import subprocess
+    import sys
+
+    code = ("import chip_smoke\n"
+            "with chip_smoke.one_rank_nccl() as mesh:\n"
+            "    print('FORMED', mesh('rows').get_group('rows'))\n")
+    env = dict(os.environ, NCCL_SOCKET_IFNAME="abip_no_such_if0")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0, r.stdout
+    assert "FORMED" not in r.stdout and "gloo" not in r.stdout.lower()

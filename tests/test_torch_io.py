@@ -337,8 +337,8 @@ def test_native_parser_builds_and_cli_needs_a_card():
 
 def test_public_surface_matches_reference():
     """`abip_tpu_torch` and `abip_tpu_torch.parallel` export every name the
-    reference's do, except the multi-card ones not yet ported (ROADMAP
-    queue 1, items 16 and 19: `sharded_normal_matvec`, `sharded_pcg`)."""
+    reference's do, the multi-card `sharded_normal_matvec` and
+    `sharded_pcg` included."""
     import abip_tpu.parallel as jpar
 
     import abip_tpu_torch.parallel as par
@@ -346,7 +346,6 @@ def test_public_surface_matches_reference():
     assert set(abip_tpu.__all__) <= set(abip_tpu_torch.__all__)
     for name in abip_tpu_torch.__all__:
         assert hasattr(abip_tpu_torch, name), name
-    multi_card = {"sharded_normal_matvec", "sharded_pcg"}
-    assert set(jpar.__all__) - multi_card <= set(par.__all__)
+    assert set(jpar.__all__) <= set(par.__all__)
     for name in par.__all__:
         assert hasattr(par, name), name

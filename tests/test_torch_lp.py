@@ -190,17 +190,19 @@ def test_dispatch_matches_reference():
 
 
 def test_unported_entry_points_raise():
-    """The entry points still to port raise, naming their queue item;
-    the conic branch of `dispatch.solve` and `solve_general`, ported
-    since, take their problems (`tests/test_torch_qcp.py`,
+    """Every entry point is ported: both `shard`s (held to the reference
+    on gloo groups in `tests/test_torch_sharded.py`) raise without a
+    `DeviceMesh`, the stand-in for the reference's JAX `Mesh`, rather
+    than run unsharded; the conic branch of `dispatch.solve` and
+    `solve_general` take their problems (`tests/test_torch_qcp.py`,
     `tests/test_torch_io.py` hold them to the reference)."""
     A, b, c = _smoke()
     ws = LPWorkspace(A, b, c, Settings(eps=1e-6), **CPU)
-    with pytest.raises(NotImplementedError, match="queue 1, item 16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ws.shard(None)
     cw = abip_tpu_torch.ConicWorkspace(
         A, b, c, abip_tpu_torch.ConeSpec.lp(A.shape[1]), **CPU)
-    with pytest.raises(NotImplementedError, match="queue 1, item 16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         cw.shard(None)
     from abip_tpu_torch.dispatch import solve_general
 

@@ -210,7 +210,9 @@ def test_lp_pdhg_batch_matches_reference_and_single(precision):
     assert one.admm_iters == int(st.k[2])
     assert one.pobj == pytest.approx(float(st.pobj[2]),
                                      rel=1e-12 if precision == "f64" else tol)
-    with pytest.raises(NotImplementedError, match="item 19"):
+    # `mesh` over gloo groups: `tests/test_torch_mesh.py`; anything but
+    # a `DeviceMesh` raises
+    with pytest.raises(TypeError, match="DeviceMesh"):
         pdhg.solve_lp_pdhg_batch(As, bs, cs, mesh=object(), **DEV)
 
 
@@ -279,3 +281,45 @@ def test_qcp_pdhg_mixed_and_batch_match_reference():
     np.testing.assert_array_equal(st.k.numpy(), np.asarray(ref.k))
     np.testing.assert_allclose(st.pobj.numpy(), np.asarray(ref.pobj),
                                rtol=1e-9)
+
+
+# f32: the two packages round f32 sums in other orders; statuses and
+# iteration counts equal, objectives within 1e-5 relative (about 100 f32
+# ulps), x within 1e-5 of its scale
+F32_REL = 1e-5
+
+
+@pytest.mark.parametrize("seed,m,n,dtype", [(3, 30, 90, np.float32),
+                                            (0, 50, 200, jnp.float32),
+                                            (3, 30, 90, torch.float32),
+                                            (0, 50, 200, "float32")])
+def test_lp_pdhg_f32_matches_reference(seed, m, n, dtype):
+    """`dtype` of `abip_tpu/pdhg.py:441-442`: numpy, JAX-named and torch
+    spellings; the solve runs in f32 (IEEE products)."""
+    A, b, c = random_lp(seed, m, n)
+    r = jpdhg.solve_lp_pdhg(A, b, c, eps=1e-6, dtype=jnp.float32)
+    p = pdhg.solve_lp_pdhg(A, b, c, eps=1e-6, dtype=dtype, **DEV)
+    assert p.status_name == r.status_name == "Solved"
+    assert p.admm_iters == r.admm_iters
+    assert p.x.dtype == np.float32
+    assert abs(p.pobj - r.pobj) <= F32_REL * max(1.0, abs(r.pobj))
+    np.testing.assert_allclose(p.x, r.x, rtol=0,
+                               atol=F32_REL * np.abs(r.x).max())
+    with pytest.raises(ValueError, match="float32 or float64"):
+        pdhg.solve_lp_pdhg(A, b, c, dtype=np.int32, **DEV)
+
+
+def test_qcp_pdhg_f32_matches_reference():
+    from benchmarks.conic_mini import randcone
+
+    seed, spec = CONIC[0]
+    _, A, b, c, cn, star = randcone(f"p{seed}", 12, jcones.ConeSpec(**spec),
+                                    seed)
+    r = jpdhg.solve_qcp_pdhg(A, b, c, cn, eps=1e-5, dtype=jnp.float32)
+    p = pdhg.solve_qcp_pdhg(A, b, c, ConeSpec(**spec), eps=1e-5,
+                            dtype=np.float32, **DEV)
+    assert p.status_name == r.status_name == "Solved"
+    assert p.admm_iters == r.admm_iters
+    assert p.x.dtype == np.float32
+    assert abs(p.pobj - r.pobj) <= F32_REL * max(1.0, abs(r.pobj))
+    assert abs(p.pobj - star) <= 1e-4 * (1 + abs(star))

@@ -598,7 +598,7 @@ def test_sigint_returns_best_effort():
 def test_dispatch_and_device_defaults():
     """`dispatch.solve` takes cones or Q to the conic driver; the entry
     points run on the CUDA card by default and raise without one; `shard`
-    names its queue item."""
+    raises without a `DeviceMesh`."""
     A, b, c, _, _ = _lp(seed=12, m=10, n=30)
     s_lp = abip_tpu_torch.solve(A, b, c, eps=1e-5, **CPU)
     s_qp = abip_tpu_torch.solve(A, b, c, Q=np.eye(30), eps=1e-5, **CPU)
@@ -608,7 +608,7 @@ def test_dispatch_and_device_defaults():
     ref = abip_tpu.solve(A, b, c, Q=np.eye(30), eps=1e-5)
     _assert_parity(ref, s_qp, full_q=True)
     ws = ConicWorkspace(A, b, c, cones.ConeSpec.lp(30), **CPU)
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ws.shard(None)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
