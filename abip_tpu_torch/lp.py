@@ -33,6 +33,7 @@ from .device import ieee_f32 as _ieee_f32, resolve_device
 from .hsd import LPResiduals as Residuals
 from .linsys.cg import cg_tolerance, pcg
 from .linsys.dense import cho_solve
+from .linsys import make_solver  # noqa: F401  (public seam, as abip_tpu.lp)
 from .problem import LinearOperator
 from .scaling import ScalingData, equilibrate, equilibrate_sparse, normalize_bc
 from .settings import Settings, Status

@@ -5,6 +5,9 @@ Each `csrc/<name>.cu` compiles with `nvcc` into
 source, every header of `csrc/` and the flags, and loads through
 `ctypes` (a plain C interface, no PyTorch headers: the build takes
 seconds).  `load_all` builds several sources at once, one `nvcc` each.
+`load` is safe to call from several threads: a lock per source makes
+the first caller build and load it while the others wait for that one
+library.
 Nothing is compiled or imported when this module is imported.
 """
 from __future__ import annotations
@@ -16,6 +19,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -57,16 +61,30 @@ def source_key(name: str, csrc: Path = CSRC) -> str:
     return h.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=None)
+_LOCKS: dict = {}                  # source name -> its build lock
+_LOCKS_GUARD = threading.Lock()
+
+
 def load(name: str) -> Library:
     """Build `csrc/<name>.cu` if its hashed library is missing, then load
-    it.  Raises on a failed build, with nvcc's output."""
+    it; every later call, from any thread, returns the same `Library`.
+    Raises on a failed build, with nvcc's output."""
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(name, threading.Lock())
+    with lock:                         # check, build and load: one thread
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> Library:
     src = CSRC / f"{name}.cu"
     so = BUILD_DIR / f"{name}-{source_key(name)}.so"
     seconds, log = 0.0, ""
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        # pid and thread: no two builds ever share a temporary file
+        tmp = so.with_name(
+            f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                               capture_output=True, text=True, check=False)

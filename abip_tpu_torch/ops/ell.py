@@ -46,6 +46,12 @@ class ELLMatrix:
                    cols=torch.as_tensor(cols, device=device),
                    shape=(m, n), nnz=int(A.nnz))
 
+    @property
+    def fill(self) -> float:
+        """Stored entries over padded slots (m * K)."""
+        m, K = self.data.shape
+        return self.nnz / max(1, m * K)
+
 
 def ell_matvec(A: ELLMatrix, x):
     """y = A @ x via gather + row reduction."""

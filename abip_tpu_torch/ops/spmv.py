@@ -83,6 +83,18 @@ class BCSRMatrix:
                    vals=torch.as_tensor(csr.data, dtype=dtype, device=device),
                    group=csr_group_size(csr.nnz, m))
 
+    @property
+    def padded_shape(self):
+        """The reference's padded shape: (rows rounded up to whole tile
+        rows, None)."""
+        return (-(-self.shape[0] // BR) * BR, None)
+
+    @property
+    def density_blocks(self) -> float:
+        """The reference's tile density: the most tiles of any block row
+        of `bcsr_tiles` over the block columns."""
+        return bcsr_tiles(self)[1].shape[1] / max(1, -(-self.shape[1] // BC))
+
 
 def bcsr_tiles(A: BCSRMatrix):
     """The reference's packing of the same entries, on the CPU: `data`

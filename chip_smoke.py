@@ -22,7 +22,8 @@ duration:
    solve three fresh smoke LPs (m=1000, n=10000, density 0.1, the shape
    of `benchmarks/results/r05_lp_m1000_tpu.json`) through `solve_lp`'s
    workspace on a CSR A, as a user calls it (BCSR layout, dense
-   Cholesky), against scipy's HiGHS; the same driver with linsys="cg" at
+   Cholesky), against scipy's HiGHS (run in worker processes while the
+   card solves); the same driver with linsys="cg" at
    m=200; time K5 cold and warm against its plain version and cuSPARSE
    (int64 and int32 indices), and at each group size; profile one
    solve;
@@ -124,7 +125,25 @@ duration:
    on the B=16 smoke batch (K1, counted as `mesh_launches`) and
    `solve_lp_pdhg_batch(mesh=)` on phase 9's batch.  It prints each wall
    and the ratio sharded/unsharded: on one rank the collectives'
-   overhead, not scaling.
+   overhead, not scaling;
+11. the validators and examples: K2 and K3 held to their plain versions
+   on the fuzz_conic zero_mixed and mixed batches (free and zero cone
+   blocks, dim 21, m 7, 18 lanes; K2 over its first iteration in trips
+   of 1, as the tool launches it, and on the whole of phase 1 in trips of
+   PROBE with the noise floor; K3 at its first launch of the tool's
+   run); `tools.fuzz_conic` with
+   --batched --engine sprint2 on every class (FUZZ_PER_CLASS lanes, each
+   class cut before its first lane over FUZZ_LANE_CAP lockstep
+   iterations in r05), each lane beside
+   `benchmarks/results/r05_conic_fuzz_ladder.jsonl`; its host driver and
+   PDHG routes on FUZZ_HOST_CLASSES; every file of mittelmann_mini and
+   mip17_mini through `solve_mps` with dense=False (K5 held to its plain
+   version on each A and A' that packs BCSR, counted as
+   `suite_launches`) and dense, against HiGHS; beside these,
+   BESIDE_WORKERS at a time, each a process of its own on the card: the
+   eight examples of `abip_tpu_torch/examples/` and `python -m
+   abip_tpu_torch.tools.fuzz_scipy`.  Every run must exit 0 and every
+   validator count no mismatch.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -136,7 +155,9 @@ Each main path runs with its kernels' launch counts set to 0 just
 before it and read just after (K5 also on the MPS route of phase 7,
 `mps_route_launches`; K2, K3 and K4 on phase 8's paths,
 `batched_rest_launches`; K1 in phase 9's thread pool,
-`pool_launches`, and over phase 10's mesh, `mesh_launches`).  Exits nonzero, printing no result, without a card or
+`pool_launches`, and over phase 10's mesh, `mesh_launches`; K2 and K3
+per fuzz_conic class, `fuzz_launches`; K5 on phase 11's suites,
+`suite_launches`).  Exits nonzero, printing no result, without a card or
 on any failure.  The last three lines are the kernel summary
 (JSON, with each kernel's bound on this card), the card's name and power
 limit, and the result (JSON).
@@ -555,78 +576,30 @@ def phase_profile(torch, dev):
 # the conic path
 # ---------------------------------------------------------------------------
 
-def _complementary_pair(cones, rng):
-    """Boundary x*, s* in K, K* with x*'s* = 0, block order [soc...,
-    rsoc..., free, zero, nonneg]: a copy of
-    `benchmarks/conic_mini._complementary_pair` (that module imports the
-    JAX package), bit-identical for the same generator."""
-    xs, ss = [], []
-    for d in cones.soc:
-        v = rng.standard_normal(d - 1) if d > 1 else np.zeros(0)
-        nv = float(np.linalg.norm(v)) if d > 1 else rng.random() + 0.5
-        xs.append(np.concatenate([[nv], v]))
-        ss.append((rng.random() + 0.5) * np.concatenate([[nv], -v]))
-    for d in cones.rsoc:
-        z = rng.standard_normal(d - 2)
-        p = rng.random() + 0.5
-        q = float(z @ z) / (2.0 * p)
-        xs.append(np.concatenate([[p, q], z]))
-        ss.append((rng.random() + 0.5) * np.concatenate([[q, p], -z]))
-    if cones.free:
-        xs.append(rng.standard_normal(cones.free))
-        ss.append(np.zeros(cones.free))
-    if cones.zero:
-        xs.append(np.zeros(cones.zero))
-        ss.append(rng.standard_normal(cones.zero))
-    if cones.nonneg:
-        mask = rng.random(cones.nonneg) < 0.5
-        pos = rng.random(cones.nonneg) + 0.5
-        xs.append(np.where(mask, pos, 0.0))
-        ss.append(np.where(mask, 0.0, pos))
-    return np.concatenate(xs), np.concatenate(ss)
-
-
-def randcone(name, m, cones, seed):
-    """Random conic program with a known optimal objective: a copy of
-    `benchmarks/conic_mini.randcone` on the port's `ConeSpec`."""
-    rng = np.random.default_rng(seed)
-    n = cones.dim
-    A = rng.standard_normal((m, n)) / np.sqrt(n)
-    A[rng.random((m, n)) < 0.5] = 0.0
-    xstar, sstar = _complementary_pair(cones, rng)
-    ystar = rng.standard_normal(m)
-    b = A @ xstar
-    c = A.T @ ystar + sstar
-    return name, A, b, c, cones, float(c @ xstar)
-
-
-def randqcp_diag(name, m, cones, seed):
-    """`benchmarks/conic_mini.randqcp(..., q_rank="diag")`: the same
-    construction with a diagonal Q, pobj* = 0.5 x*'Qx* + c'x*."""
-    rng = np.random.default_rng(seed)
-    n = cones.dim
-    A = rng.standard_normal((m, n)) / np.sqrt(n)
-    A[rng.random((m, n)) < 0.5] = 0.0
-    Q = rng.random(n) + 0.1
-    xstar, sstar = _complementary_pair(cones, rng)
-    ystar = rng.standard_normal(m)
-    b = A @ xstar
-    c = A.T @ ystar + sstar - Q * xstar
-    return name, A, b, c, Q, cones, 0.5 * float(xstar @ (Q * xstar)) + float(
-        c @ xstar)
-
-
-def conic_batch(seed0, count=B, spec=None, m=CONIC_M, diag_q=False):
-    """(cones, (As, bs, cs, Qs or None), optima) of `count` instances."""
+def conic_batch(seed0=None, count=B, spec=None, m=CONIC_M, diag_q=False,
+                fuzz=None):
+    """(cones, (As, bs, cs, Qs or None), optima) of `count` instances:
+    `randcone` (with `diag_q`, `randqcp` with a diagonal Q) from the
+    seeds seed0, seed0 + 1, ..., or, with `fuzz`, the first `count`
+    instances of that `tools.fuzz_conic` class."""
     from abip_tpu_torch.cones import ConeSpec
+    from abip_tpu_torch.tools.fuzz_conic import instances
+    from abip_tpu_torch.tools.generate import randcone, randqcp
 
-    cones = ConeSpec(**(spec or CONIC_SPEC))
-    if diag_q:
-        data = [randqcp_diag("q", m, cones, seed0 + i) for i in range(count)]
-        Qs = np.stack([d[4] for d in data])
+    if fuzz is not None:
+        cones, data = instances(fuzz, count)
     else:
-        data = [randcone("c", m, cones, seed0 + i) for i in range(count)]
-        Qs = None
+        cones = ConeSpec(**(spec or CONIC_SPEC))
+        data = []     # (name, A, b, c, Q or None, optimum), as instances
+        for i in range(count):
+            if diag_q:
+                name, A, b, c, Q, _, star = randqcp("q", m, cones, seed0 + i,
+                                                    q_rank="diag")
+            else:
+                name, A, b, c, _, star = randcone("c", m, cones, seed0 + i)
+                Q = None
+            data.append((name, A, b, c, Q, star))
+    Qs = None if data[0][4] is None else np.stack([d[4] for d in data])
     stacks = tuple(np.stack([d[k] for d in data]) for k in (1, 2, 3))
     return cones, stacks + (Qs,), np.asarray([d[-1] for d in data])
 
@@ -667,13 +640,15 @@ def cold_ladder_operands(torch, P, cones):
         u.clone(), 0.0)
 
 
-def conic_phase1_state(torch, P, cones):
-    """The solver's phase 1 (ladder) run to the 1e-3 switch: a mid-solve
-    state for the delta chunk."""
+def conic_phase1_state(torch, P, cones, **over):
+    """The solver's phase 1 (ladder) run to the 1e-3 switch with
+    CONIC_KW's options (`over` replaces some): a mid-solve state for the
+    delta chunk."""
     from abip_tpu_torch.parallel.batched_qcp import _solve
 
     kw = {k: v for k, v in CONIC_KW.items() if k not in ("engine",
                                                           "normalize")}
+    kw.update(over)
     r = _solve(None, None, None, P.Q_diag, cones=cones, engine="ladder",
                mu_stop=1e-3, prepared=P, **kw)
     if (r.status != 0).any() or (r.mu >= 1e-3).any():
@@ -695,12 +670,13 @@ def conic_anchor(torch, P, cones, st, thresh, q_init=float("inf")):
 
 
 def compare_conic(ker, plain, names, label, amplified=("y", "dy"),
-                  rel_scale=REL_SCALE):
+                  rel_scale=REL_SCALE, floor=None):
     """Raise unless every kernel output is within the stated tolerance of
     the plain version's: rtol 2e-5 plus `rel_scale` of the output's
     largest magnitude, that absolute term times 1/rho_y for the conic
-    free block (`amplified`), and ERR_RTOL for the inner criterion (slot
-    2 of the row).  Return the largest absolute difference."""
+    free block (`amplified`) and at least `floor[name]` where given (a
+    number, or one per column), and ERR_RTOL for the inner criterion
+    (slot 2 of the row).  Return the largest absolute difference."""
     worst = 0.0
     for name, k, p in zip(names, ker, plain):
         k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
@@ -711,9 +687,10 @@ def compare_conic(ker, plain, names, label, amplified=("y", "dy"),
         atol = rel_scale * max(1.0, float(np.abs(p).max()))
         if name in amplified:
             atol *= Y_AMPLIFY
-        allowed = RTOL * np.abs(p) + atol
+        least = np.broadcast_to((floor or {}).get(name, 0.0), p.shape[1:])
+        allowed = RTOL * np.abs(p) + np.maximum(atol, least)
         if name == "row":
-            allowed[:, 2] = ERR_RTOL * np.abs(p[:, 2])
+            allowed[:, 2] = np.maximum(ERR_RTOL * np.abs(p[:, 2]), least[2])
         if (diff > allowed).any():
             i = np.unravel_index(np.argmax(diff - allowed), diff.shape)
             raise AssertionError(
@@ -759,12 +736,39 @@ def dr_form_plan(torch, P, co, form):
         P.dss.form == "woodbury"))
 
 
-def ladder_parity(torch, dev, label, case, form=None):
+# the ladder row's continuous slots (tau, kappa, err, tol); t_done, mu and
+# stages are decisions, held equal
+LADDER_ROW_CONTINUOUS = (0, 1, 2, 5)
+
+
+def ladder_noise_floor(names, plain, exact):
+    """{output: least absolute term} of K2's noise floor: ACC_RATIO times
+    the plain ladder's own largest distance from the f64 run, per output,
+    and for the row per continuous slot (0 on the decisions)."""
+    floor = {}
+    for n, p, e in zip(names, plain, exact):
+        far = ACC_RATIO * (p.double() - e).abs().amax(0).cpu().numpy()
+        if n == "row":
+            keep = np.zeros_like(far)
+            keep[list(LADDER_ROW_CONTINUOUS)] = far[
+                list(LADDER_ROW_CONTINUOUS)]
+            floor[n] = keep
+        else:
+            floor[n] = float(far.max())
+    return floor
+
+
+def ladder_parity(torch, dev, label, case, form=None, noise_floor=False,
+                  T=2048, probe=PROBE):
     """K2 against the plain ladder on phase 1 from the cold start of one
-    batch, in the form of its launch plan (or in `form`, as
-    `dr_form_plan` takes it): equal t_done, stages and mu; the stated
-    tolerance; at most ACC_RATIO times the plain version's distance from
-    an f64 run.  Returns the largest |kernel - plain|."""
+    batch (T iterations at most, in trips of `probe`), in the form of its
+    launch plan (or in `form`, as `dr_form_plan` takes it): equal
+    t_done, stages and mu; the stated tolerance; at most ACC_RATIO times
+    the plain version's distance from an f64 run.  With `noise_floor`,
+    the absolute terms are at least `ladder_noise_floor`'s (where the
+    f32 ladder is that noisy, as on fuzz_conic's small batches over the
+    whole phase 1, any other f32 order of the sums lands that far
+    apart).  Returns the largest |kernel - plain|."""
     from abip_tpu_torch.cones import cone_operands
     from abip_tpu_torch.ops.conic_dr import (LadderOperands,
                                              _dr_ladder_compute, ladder_cuda)
@@ -775,8 +779,8 @@ def ladder_parity(torch, dev, label, case, form=None):
     co = cone_operands(cones, dev)
     plan = dr_form_plan(torch, P, co, form)
     print(f"K2 {label}: {dr_plan_line(torch, P, co, 'ladder', plan)}")
-    t_max = torch.full((op.A.shape[0],), 2048, dtype=torch.int32, device=dev)
-    run = dict(probe=PROBE, psi=1.0, woodbury=P.dss.form == "woodbury")
+    t_max = torch.full((op.A.shape[0],), T, dtype=torch.int32, device=dev)
+    run = dict(probe=probe, psi=1.0, woodbury=P.dss.form == "woodbury")
     ker = ladder_cuda(op, co, t_max, plan=plan, **run)
     plain = _dr_ladder_compute(op, co, t_max, **run)
     exact = _dr_ladder_compute(LadderOperands(*[x.double() for x in op]), co,
@@ -787,23 +791,32 @@ def ladder_parity(torch, dev, label, case, form=None):
             raise AssertionError(
                 f"K2 {label}: {what} differs: kernel "
                 f"{ker[4][:, col].tolist()} plain {plain[4][:, col].tolist()}")
-    err = compare_conic(ker, plain, ("y", "x", "vy", "vx", "row"),
-                        f"K2 {label}")
+    names = ("y", "x", "vy", "vx", "row")
+    floor = ladder_noise_floor(names, plain, exact) if noise_floor else None
+    err = compare_conic(ker, plain, names, f"K2 {label}", floor=floor)
     kerr, perr = accuracy_vs_f64(ker, plain, exact, f"K2 {label}")
-    print(f"parity K2 {label} {P.dss.form} phase 1 (T=2048, mu_stop 1e-3): "
+    if noise_floor:        # y, the free block, on its own too
+        accuracy_vs_f64(ker[:1], plain[:1], exact[:1], f"K2 {label} y")
+    noise = "" if floor is None else (
+        ", absolute terms at least " + ", ".join(
+            f"{n} {np.max(v):.2e}" for n, v in floor.items())
+        + " (the noise floor; the row's per continuous slot)")
+    print(f"parity K2 {label} {P.dss.form} phase 1 (T={T}, probe {probe}, "
+          f"mu_stop 1e-3): "
           f"t_done {int(ker[4][0, 3])}, stages {int(ker[4][0, 6])}, mu "
           f"{float(ker[4][0, 4]):.4e} equal on every lane; max|kernel-plain| "
-          f"{err:.3e} (stated tolerance: ok); vs f64 run: kernel {kerr:.3e}, "
-          f"plain {perr:.3e} (kernel at most {ACC_RATIO}x: ok)")
+          f"{err:.3e} (stated tolerance{noise}: ok); vs f64 run: kernel "
+          f"{kerr:.3e}, plain {perr:.3e} (kernel at most {ACC_RATIO}x: ok)")
     return err
 
 
-def delta_parity_at(torch, dev, label, P, cones, st, plan=None):
+def delta_parity_at(torch, dev, label, P, cones, st, plan=None, T=64,
+                    probe=PROBE):
     """K3 against the plain chunk from the state `st` (`u_raw`, `v_raw`,
-    `mu` per lane) on the prepared setup `P`: T=64 with thresh=0, equal
-    t_done, the stated tolerance and the accuracy ratio against an f64
-    run, in the form of the launch plan or of `plan`.  Returns (the
-    anchor, the largest |kernel - plain|)."""
+    `mu` per lane) on the prepared setup `P`: T iterations in trips of
+    `probe` with thresh=0, equal t_done, the stated tolerance and the
+    accuracy ratio against an f64 run, in the form of the launch plan or
+    of `plan`.  Returns (the anchor, the largest |kernel - plain|)."""
     from abip_tpu_torch.cones import cone_operands
     from abip_tpu_torch.ops.conic_delta import (ConicDeltaAnchor,
                                                 _conic_delta_compute,
@@ -813,8 +826,8 @@ def delta_parity_at(torch, dev, label, P, cones, st, plan=None):
     nb = P.A.shape[0]
     print(f"K3 {label}: {k3_plan_line(torch, P, co, plan)}")
     anc = conic_anchor(torch, P, cones, st, 0.0)
-    t_max = torch.full((nb,), 64, dtype=torch.int32, device=dev)
-    run = dict(probe=PROBE, woodbury=P.dss.form == "woodbury")
+    t_max = torch.full((nb,), T, dtype=torch.int32, device=dev)
+    run = dict(probe=probe, woodbury=P.dss.form == "woodbury")
     ker = conic_delta_cuda(anc, co, t_max, plan=plan, **run)
     plain = _conic_delta_compute(anc, co, t_max, **run)
     exact = _conic_delta_compute(ConicDeltaAnchor(*[x.double() for x in anc]),
@@ -825,7 +838,8 @@ def delta_parity_at(torch, dev, label, P, cones, st, plan=None):
     err = compare_conic(ker, plain, ("dy", "dx", "dvy", "dvx", "row"),
                         f"K3 {label}")
     kerr, perr = accuracy_vs_f64(ker, plain, exact, f"K3 {label}")
-    print(f"parity K3 {label} {P.dss.form} B={nb} T=64: t_done equal; "
+    print(f"parity K3 {label} {P.dss.form} B={nb} T={T} probe {probe}: "
+          f"t_done equal; "
           f"max|kernel-plain| {err:.3e} (stated tolerance: ok); vs f64 run: "
           f"kernel {kerr:.3e}, plain {perr:.3e} (kernel at most {ACC_RATIO}x: "
           f"ok)")
@@ -1738,23 +1752,6 @@ SUITES = os.path.join(ROOT, "benchmarks", "suites")
 PROFILE_IPM = 8               # barrier stages of the profiled conic solve
 
 
-def randqcp(name, m, cones, seed):
-    """`benchmarks/conic_mini.randqcp(..., q_rank=None)` on the port's
-    `ConeSpec`: a full PSD Q = M'M + 0.1 I, pobj* = 0.5 x*'Qx* + c'x*."""
-    rng = np.random.default_rng(seed)
-    n = cones.dim
-    A = rng.standard_normal((m, n)) / np.sqrt(n)
-    A[rng.random((m, n)) < 0.5] = 0.0
-    M = rng.standard_normal((n, n)) / np.sqrt(n)
-    Q = M.T @ M + 0.1 * np.eye(n)
-    xstar, sstar = _complementary_pair(cones, rng)
-    ystar = rng.standard_normal(m)
-    b = A @ xstar
-    c = A.T @ ystar + sstar - Q @ xstar
-    return name, A, b, c, Q, cones, 0.5 * float(xstar @ Q @ xstar) + float(
-        c @ xstar)
-
-
 def front_check(label, sol, star, sec=None):
     """Print one solve's line; raise unless it is Solved, finite and
     within 1e-5 of `star` relative to max(1, |star|)."""
@@ -1778,6 +1775,7 @@ def phase_front_conic(torch, dev):
     instances: conic defaults, then dense_mode="inverse_mixed" with
     rho_y=1e-3; a diagonal Q and a full PSD Q (the primal form)."""
     from abip_tpu_torch import ConeSpec, ConicWorkspace, solve_qcp
+    from abip_tpu_torch.tools.generate import randcone, randqcp
     from abip_tpu_torch.utils.timing import wall_s
 
     cones = ConeSpec(**CONIC_SPEC)
@@ -1797,7 +1795,8 @@ def phase_front_conic(torch, dev):
                                                 eps=FRONT_EPS, **kw))
             front_check(f"front door dim-1020 seed {seed} {label}", sol,
                         star, sec)
-    _, A, b, c, Qd, _, star = randqcp_diag("qd", CONIC_M, cones, 8710)
+    _, A, b, c, Qd, _, star = randqcp("qd", CONIC_M, cones, 8710,
+                                      q_rank="diag")
     sec, sol = wall_s(lambda: solve_qcp(A, b, c, cones, Q=Qd, eps=FRONT_EPS))
     front_check("front door dim-1020 diagonal Q", sol, star, sec)
     _, A, b, c, Q, _, star = randqcp("qf", CONIC_M, cones, 8711)
@@ -1813,6 +1812,7 @@ def phase_front_cg(torch, dev):
     """One n=5100 instance, where linsys "auto" takes CGSchurSolver."""
     from abip_tpu_torch import ConeSpec, ConicWorkspace, conic_defaults
     from abip_tpu_torch.linsys.schur import CGSchurSolver
+    from abip_tpu_torch.tools.generate import randcone
     from abip_tpu_torch.utils.timing import wall_s
 
     cones = ConeSpec(**CG_SPEC)
@@ -1837,6 +1837,7 @@ def phase_front_workspace(torch, dev):
     import tempfile
 
     from abip_tpu_torch import ConeSpec, ConicWorkspace, conic_defaults
+    from abip_tpu_torch.tools.generate import _complementary_pair, randcone
     from abip_tpu_torch.utils.checkpoint import ConicCheckpoint
     from abip_tpu_torch.utils.timing import wall_s
 
@@ -1904,6 +1905,63 @@ def sedumi_certificate(path, sol, label):
         raise AssertionError(f"{label}: {sol.status_name}, certificate off")
 
 
+_MPS_HIGHS = {}     # .mps path -> HiGHS's objective in the user's sense
+
+
+def mps_files_vs_highs(torch, dev, paths, label, dense=False,
+                       mps_solves=None):
+    """Each .mps file through `solve_mps(dense=dense)` on the card,
+    against scipy's HiGHS on the presolved standard form within 1e-5
+    relative; with dense=False, K5 held to its plain version on the
+    file's A and A' first where the driver packs them BCSR, then counted.
+    Records each file's standard form and standard-form solution in
+    `mps_solves`.  Returns K5's launches."""
+    from scipy.optimize import linprog
+
+    from abip_tpu_torch.io.mps import read_mps
+    from abip_tpu_torch.io.presolve import presolve_to_standard, solve_mps
+    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
+    from abip_tpu_torch.problem import bcsr_fill_estimate
+
+    k5 = 0
+    for p in paths:
+        name = os.path.basename(p).split(".", 1)[0]
+        # the pattern of the equilibrated A is std.A's
+        A = presolve_to_standard(read_mps(p)).A.tocsr()
+        packed = not dense and bcsr_fill_estimate(A) > 0.05
+        if packed:
+            for what, M in (("A", A), ("A'", A.T.tocsr())):
+                spmv_parity(torch, dev, f"{name}.mps {what} {M.shape[0]}x"
+                            f"{M.shape[1]}", M, "f64")
+        bcsr_matvec_cuda.launches = 0
+        sol, std = solve_mps(p, dense=dense, eps=FRONT_EPS)
+        launches = bcsr_matvec_cuda.launches
+        if mps_solves is not None:
+            mps_solves[name] = (std, sol.x_std)
+        if (launches > 0) != packed:
+            raise AssertionError(f"{name}.mps: K5 launches {launches}, "
+                                 f"packed {packed}")
+        k5 += launches
+        if p not in _MPS_HIGHS:     # the dense and sparse routes share it
+            ref = linprog(std.c, A_eq=std.A, b_eq=std.b, bounds=(0, None),
+                          method="highs")
+            if ref.status != 0:
+                raise AssertionError(f"HiGHS failed on {name}: "
+                                     f"{ref.message}")
+            _MPS_HIGHS[p] = std.user_objective(ref.fun)
+        star = _MPS_HIGHS[p]
+        rel = abs(sol.pobj - star) / max(1.0, abs(star))
+        print(f"{label} {name}.mps {std.A.shape[0]}x{std.A.shape[1]} "
+              f"{'dense' if dense else 'sparse'}: {sol.status_name}, IPM "
+              f"{sol.ipm_iters}, ADMM {sol.admm_iters}, solve "
+              f"{sol.solve_time:.3f} s, K5 launches {launches}, pobj "
+              f"{sol.pobj:.10g} vs HiGHS {star:.10g}, relative gap "
+              f"{rel:.3e} (limit 1e-5)")
+        if sol.status_name != "Solved" or rel > 1e-5:
+            raise AssertionError(f"{name}.mps: {sol.status_name}, {rel:.3e}")
+    return k5
+
+
 def phase_front_files(torch, dev, mps_solves=None):
     """The committed suites through the CLI's own functions, on the card:
     every conic_mini .mat against its stored pobj_star (a file without
@@ -1919,14 +1977,8 @@ def phase_front_files(torch, dev, mps_solves=None):
     import glob
     import time
 
-    from scipy.optimize import linprog
-
     from abip_tpu_torch.io.cbf import solve_cbf
-    from abip_tpu_torch.io.mps import read_mps
-    from abip_tpu_torch.io.presolve import presolve_to_standard, solve_mps
     from abip_tpu_torch.io.sedumi import solve_sedumi
-    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
-    from abip_tpu_torch.problem import bcsr_fill_estimate
 
     def base(p):
         return os.path.basename(p).rsplit(".", 1)[0]
@@ -1962,39 +2014,10 @@ def phase_front_files(torch, dev, mps_solves=None):
             raise AssertionError(f"{name}.cbf: {sol.status_name}, {rel:.3e}")
     conic_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    k5 = 0
-    for p in sorted(glob.glob(os.path.join(SUITES, "netlib_mini", "*.mps"))):
-        # K5 against its plain version on this file's A and A', where the
-        # driver packs them (the pattern of the equilibrated A is std.A's)
-        A = presolve_to_standard(read_mps(p)).A.tocsr()
-        packed = bcsr_fill_estimate(A) > 0.05
-        if packed:
-            for what, M in (("A", A), ("A'", A.T.tocsr())):
-                spmv_parity(torch, dev, f"{base(p)}.mps {what} {M.shape[0]}x"
-                            f"{M.shape[1]}", M, "f64")
-        bcsr_matvec_cuda.launches = 0
-        sol, std = solve_mps(p, dense=False, eps=FRONT_EPS)
-        launches = bcsr_matvec_cuda.launches
-        if mps_solves is not None:
-            mps_solves[base(p)] = (std, sol.x_std)
-        if (launches > 0) != packed:
-            raise AssertionError(f"{base(p)}.mps: K5 launches {launches}, "
-                                 f"packed {packed}")
-        k5 += launches
-        ref = linprog(std.c, A_eq=std.A, b_eq=std.b, bounds=(0, None),
-                      method="highs")
-        if ref.status != 0:
-            raise AssertionError(f"HiGHS failed on {base(p)}: {ref.message}")
-        star = std.user_objective(ref.fun)
-        rel = abs(sol.pobj - star) / max(1.0, abs(star))
-        print(f"front door {base(p)}.mps {std.A.shape[0]}x{std.A.shape[1]} "
-              f"sparse: {sol.status_name}, IPM {sol.ipm_iters}, ADMM "
-              f"{sol.admm_iters}, solve {sol.solve_time:.3f} s, K5 launches "
-              f"{launches}, pobj {sol.pobj:.10g} vs HiGHS {star:.10g}, "
-              f"relative gap {rel:.3e} (limit 1e-5)")
-        if sol.status_name != "Solved" or rel > 1e-5:
-            raise AssertionError(f"{base(p)}.mps: {sol.status_name}, "
-                                 f"{rel:.3e}")
+    k5 = mps_files_vs_highs(
+        torch, dev, sorted(glob.glob(os.path.join(SUITES, "netlib_mini",
+                                                  "*.mps"))),
+        "front door", mps_solves=mps_solves)
     mps_s = time.perf_counter() - t0
     if k5 <= 0:
         raise AssertionError("the MPS route launched K5 no time")
@@ -2026,6 +2049,7 @@ def phase_front_profile(torch, dev):
     the ~440 launches of every ADMM iteration): the card's busy share,
     launches per ADMM iteration and the top device operations."""
     from abip_tpu_torch import ConeSpec, ConicWorkspace, conic_defaults
+    from abip_tpu_torch.tools.generate import randcone
 
     cones = ConeSpec(**CONIC_SPEC)
     _, A, b, c, _, _ = randcone("p", CONIC_M, cones, 8740)
@@ -2217,6 +2241,7 @@ def phase_steps(torch, dev, card):
     from abip_tpu_torch import ConeSpec, solve_qcp_batch
     from abip_tpu_torch.ops.conic_delta import conic_delta_cuda
     from abip_tpu_torch.ops.conic_dr import ladder_cuda
+    from abip_tpu_torch.tools.generate import randqcp
 
     cones, stacks, stars = conic_batch(8990)
     sec, res, (l2, l3) = counted(lambda: solve_qcp_batch(
@@ -2283,6 +2308,7 @@ def phase_device_polish(torch, dev, card):
     from abip_tpu_torch import ConeSpec, solve_qcp_batch
     from abip_tpu_torch.parallel import solve_qcp_device
     from abip_tpu_torch.parallel.batched_qcp import host_polish
+    from abip_tpu_torch.tools.generate import randcone
     from abip_tpu_torch.utils.timing import wall_s
 
     cones = ConeSpec(**CONIC_SPEC)
@@ -2606,8 +2632,8 @@ def phase_pagerank(torch, dev, card):
 
 def phase_stream(torch, dev, card):
     """48 fresh smoke LPs through the lane-swap stream (B=16, seg_chunks=32,
-    qres_period=64) and through `solve_lp_batch` in three fixed batches
-    of 16 (`SOLVE_KW`: delta, K1), each within 1e-5 of HiGHS."""
+    qres_period=64) and through `solve_lp_batch` in fixed batches of 16
+    (`SOLVE_KW`: delta, K1), each within 1e-5 of HiGHS."""
     from abip_tpu_torch.parallel import solve_lp_batch
     from abip_tpu_torch.parallel.segmented import solve_lp_stream
     from abip_tpu_torch.utils.timing import wall_s
@@ -2631,9 +2657,9 @@ def phase_stream(torch, dev, card):
         lp_vs_highs(data[k:k + B], res, f"fixed batch {k // B}")
         secs.append(sec)
         admm += int(res.admm_iters.sum())
-    print(f"fixed batches 3 x B={B} (delta, T=1536) [{card}]: walls "
-          f"{[round(s, 4) for s in secs]} s, total {sum(secs):.3f} s, ADMM "
-          f"total {admm}; the stream's wall / the batches' "
+    print(f"fixed batches {len(secs)} x B={B} (delta, T=1536) [{card}]: "
+          f"walls {[round(s, 4) for s in secs]} s, total {sum(secs):.3f} s, "
+          f"ADMM total {admm}; the stream's wall / the batches' "
           f"{sec_s / sum(secs):.2f}")
 
 
@@ -2966,6 +2992,7 @@ def phase_multi_card(torch, dev, card, pdhg_batch):
     from abip_tpu_torch.parallel import solve_lp_batch
     from abip_tpu_torch.parallel.sharded import make_sharded_kkt_solver
     from abip_tpu_torch.pdhg import solve_lp_pdhg_batch
+    from abip_tpu_torch.tools.generate import randcone
     from abip_tpu_torch.utils.timing import wall_s
 
     def ratio(label, base_s, shard_s):
@@ -3097,11 +3124,256 @@ def phase_multi_card(torch, dev, card, pdhg_batch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the validators and examples
+# ---------------------------------------------------------------------------
+
+# fuzz_conic --batched --engine sprint2 at the size of
+# `benchmarks/results/r05_conic_fuzz_ladder.jsonl` (18 a class), so each
+# verdict compares seed for seed with that JAX run, but each class only
+# up to its first lane that took more than FUZZ_LANE_CAP lockstep ADMM
+# iterations in r05.  The tool keeps the JAX tool's inner_crit_period=1,
+# so every lockstep iteration is one K3 launch between host-issued f64
+# work (the steps engine of a full Q likewise): 6.2-9.4 ms each on an
+# H100 (PERF.md), and a lane of r05's 2,673-2,903 (rsoc i=9, nonneg
+# i=7), 4,411 (soc i=11), 9,416 (mixed i=9), 132,340 (nonneg i=10) or
+# 194,568 (qp_lowrank i=5) iterations would take from 20 seconds to half
+# an hour.  The whole r05 size runs through the tool
+# itself (`python -m abip_tpu_torch.tools.fuzz_conic --batched --engine
+# sprint2 --per-class 18`; PERF.md).
+FUZZ_PER_CLASS = 18
+FUZZ_LANE_CAP = 2000
+FUZZ_R05 = os.path.join(ROOT, "benchmarks", "results",
+                        "r05_conic_fuzz_ladder.jsonl")
+# the host driver and PDHG routes of fuzz_conic on the classes with free
+# and zero blocks, one instance a class (cut from 2 to hold the smoke's
+# wall)
+FUZZ_HOST_CLASSES = ("free_mixed", "mixed", "zero_mixed")
+FUZZ_HOST_PER_CLASS = 1
+FUZZ_SCIPY_PER_CLASS = 5
+# K2 and K3 held to their plain versions on the first launches of these
+# fuzz_conic batches (free and zero blocks; dim 21, m 7)
+FUZZ_PARITY_CLASSES = ("zero_mixed", "mixed")
+MPS_SUITES = ("mittelmann_mini", "mip17_mini")
+EXAMPLES = os.path.join(ROOT, "abip_tpu_torch", "examples")
+# the examples and the fuzz_scipy CLI run in processes of their own beside
+# the rest of phase 11, this many at a time, each within BESIDE_LIMIT_S:
+# their walls, three at a time on an H100, sum to 360-400 s (PERF.md),
+# which the smoke's limit does not hold one after another
+BESIDE_WORKERS = 3
+BESIDE_LIMIT_S = 600
+
+
+def phase_fuzz_parity(torch, dev):
+    """K2 and K3 against their plain versions on the fuzz_conic batches of
+    FUZZ_PARITY_CLASSES (18 lanes each, free and zero blocks, prepared as
+    the tool's batched call prepares them).  K2 as the tool launches it
+    (inner_crit_period=1, so trips of 1), over its first iteration, whose
+    end takes the first stage decision, at the stated tolerance; then
+    the whole of phase 1 (T=2048) in trips of PROBE, held with the noise
+    floor (`ladder_parity`): there the plain f32 ladder sits 5e-4 to
+    5e-3 from an f64 run, beyond the stated absolute term, and in trips
+    of 1 it takes some stage decisions an iteration apart from K2.  K3:
+    its first launch in the tool's run, one iteration from the state the
+    tool's phase 1 hands over, at the stated tolerance.  Returns their
+    largest |kernel - plain|."""
+    k2, k3 = 0.0, 0.0
+    for cls in FUZZ_PARITY_CLASSES:
+        case = dict(fuzz=cls, count=FUZZ_PER_CLASS)
+        label = f"fuzz_conic {cls} B={FUZZ_PER_CLASS}"
+        k2 = max(k2, ladder_parity(torch, dev, label, case, T=1, probe=1))
+        k2 = max(k2, ladder_parity(torch, dev, label, case, noise_floor=True))
+        cones, stacks, _ = conic_batch(**case)
+        P = conic_prepared(torch, cones, stacks, dev)
+        st = conic_phase1_state(torch, P, cones, inner_crit_period=1)
+        k3 = max(k3, delta_parity_at(torch, dev, label, P, cones, st, T=1,
+                                     probe=1)[1])
+    return k2, k3
+
+
+def phase_fuzz_conic(torch, dev, card):
+    """`tools.fuzz_conic` with --batched --engine sprint2 on the card,
+    class by class (FUZZ_PER_CLASS lanes, up to FUZZ_LANE_CAP): every
+    instance within 50*eps of its exact optimum, KKT and cone membership;
+    each lane's status, verdict and ADMM count beside r05's (the JAX
+    package on a CPU).  Returns {class: K2 launches}, {class: K3
+    launches}."""
+    from abip_tpu_torch.ops.conic_delta import conic_delta_cuda
+    from abip_tpu_torch.ops.conic_dr import ladder_cuda
+    from abip_tpu_torch.tools import fuzz_conic
+
+    with open(FUZZ_R05) as f:
+        r05 = {(r["class"], r["i"]): r for r in map(json.loads, f)
+               if "class" in r}
+    k2, k3, recs = {}, {}, []
+    for cls in fuzz_conic.class_names():
+        per = next((i for i in range(FUZZ_PER_CLASS)
+                    if r05[cls, i]["admm"] > FUZZ_LANE_CAP), FUZZ_PER_CLASS)
+        sec, out, (k2[cls], k3[cls]) = counted(
+            lambda: fuzz_conic.run_class(cls, per, batched=True,
+                                         engine="sprint2"),
+            (ladder_cuda, conic_delta_cuda))
+        recs += out
+        admm = [r["admm"] for r in out]
+        differ = [(r["i"], r["admm"], r05[cls, r["i"]]["admm"]) for r in out
+                  if (r["status"], r["ok"], r["admm"]) != (
+                      r05[cls, r["i"]]["status"], r05[cls, r["i"]]["ok"],
+                      r05[cls, r["i"]]["admm"])]
+        print(f"fuzz_conic sprint2 {cls} B={per} [{card}]: {sec:.3f} s, ok "
+              f"{sum(r['ok'] for r in out)}/{per}, ADMM sum {sum(admm)} max "
+              f"{max(admm)}, K2 launches {k2[cls]}, K3 launches {k3[cls]}, "
+              f"lanes off r05 (i, ADMM, r05 ADMM): {differ or 'none'}")
+        if fuzz_conic.class_engine(cls, "sprint2") == "sprint2" and \
+                k2[cls] <= 0:
+            raise AssertionError(f"fuzz_conic {cls}: sprint2 launched K2 "
+                                 "no time")
+    if sum(k3.values()) <= 0:
+        raise AssertionError("fuzz_conic sprint2 launched K3 no time")
+    bad = [r for r in recs if not r["ok"]]
+    print("fuzz_conic --batched --engine sprint2: " + json.dumps(
+        {"total": len(recs), "mismatches": len(bad),
+         "per_class": FUZZ_PER_CLASS, "eps": 1e-6}))
+    if bad:
+        raise AssertionError(f"fuzz_conic sprint2 mismatches: {bad}")
+    return k2, k3
+
+
+def phase_fuzz_host(torch, dev):
+    """`tools.fuzz_conic` through the host conic driver and through conic
+    PDHG on FUZZ_HOST_CLASSES, FUZZ_HOST_PER_CLASS instances each, on the
+    card: each route's summary must count no mismatch."""
+    from abip_tpu_torch.tools import fuzz_conic
+
+    for method in fuzz_conic.METHODS:
+        recs = []
+        for cls in FUZZ_HOST_CLASSES:
+            recs += fuzz_conic.run_class(cls, FUZZ_HOST_PER_CLASS,
+                                         method=method)
+        for r in recs:
+            print(f"fuzz_conic {method} {r['class']} i={r['i']}: "
+                  f"{r['status']}, ADMM {r['admm']}, {r['time']} s, obj_err "
+                  f"{r.get('obj_err', float('nan')):.3e}, kkt "
+                  f"{r.get('kkt', float('nan')):.3e}")
+        bad = [r for r in recs if not r["ok"]]
+        print(f"fuzz_conic --method {method}: " + json.dumps(
+            {"total": len(recs), "mismatches": len(bad),
+             "per_class": FUZZ_HOST_PER_CLASS, "eps": 1e-6}))
+        if bad:
+            raise AssertionError(f"fuzz_conic {method} mismatches: {bad}")
+
+
+def phase_mps_suites(torch, dev, dense=False):
+    """Every file of mittelmann_mini and mip17_mini through `solve_mps`
+    on the card (`mps_files_vs_highs`): dense=False holds K5 to its plain
+    version on each A and A' that packs BCSR and counts its launches.
+    Returns K5's launches."""
+    import glob
+
+    k5 = 0
+    for suite in MPS_SUITES:
+        paths = sorted(glob.glob(os.path.join(SUITES, suite, "*.mps*")))
+        k5 += mps_files_vs_highs(torch, dev, paths, suite, dense)
+    if not dense and k5 <= 0:
+        raise AssertionError("no suite file launched K5")
+    return k5
+
+
+def beside_commands():
+    """(label, argv) of phase 11's runs beside the main process, the
+    longest first: the eight examples and `tools.fuzz_scipy` at
+    FUZZ_SCIPY_PER_CLASS."""
+    import glob
+
+    paths = sorted(glob.glob(os.path.join(EXAMPLES, "*.py")))
+    if len(paths) != 8:
+        raise AssertionError(f"expected 8 examples, found {len(paths)}")
+    longest = ("06_diff.py", "08_parametric_serving.py")
+    examples = [(f"example {os.path.basename(p)}", [sys.executable, p])
+                for p in sorted(paths, key=lambda p: os.path.basename(p)
+                                not in longest)]
+    return examples[:2] + [
+        ("fuzz_scipy", [sys.executable, "-m",
+                        "abip_tpu_torch.tools.fuzz_scipy", "--per-class",
+                        str(FUZZ_SCIPY_PER_CLASS)])] + examples[2:]
+
+
+@contextlib.contextmanager
+def running_beside(commands):
+    """Run each (label, argv) on the card in a process of its own beside
+    this one, BESIDE_WORKERS at a time in the order given, each killed
+    after BESIDE_LIMIT_S; yields [(label, future of (returncode, output,
+    seconds))].  At exit every process still running is killed and those
+    not started never start."""
+    import tempfile
+    import threading
+    import time
+    from concurrent.futures import ThreadPoolExecutor
+
+    lock, stop, procs = threading.Lock(), threading.Event(), []
+
+    def run(argv):
+        with tempfile.TemporaryFile("w+") as out:
+            with lock:
+                if stop.is_set():
+                    return None, "not started", 0.0
+                t0 = time.perf_counter()
+                proc = subprocess.Popen(argv, cwd=ROOT, stdout=out,
+                                        stderr=subprocess.STDOUT, text=True)
+                procs.append(proc)
+            try:
+                proc.wait(timeout=BESIDE_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            out.seek(0)
+            return proc.returncode, out.read(), time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(max_workers=BESIDE_WORKERS)
+    try:
+        yield [(label, pool.submit(run, argv)) for label, argv in commands]
+    finally:
+        with lock:
+            stop.set()
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_beside(runs, card):
+    """Wait for each run of `running_beside`; print its last lines (and
+    fuzz_scipy's verdicts per class) and raise unless every run exited 0
+    and fuzz_scipy's summary counts every LP and no mismatch."""
+    failed = []
+    for label, future in runs:
+        rc, text, sec = future.result()
+        lines = [ln for ln in text.splitlines() if ln.strip()]
+        print(f"{label} rc {rc} in {sec:.1f} s [{card}]: "
+              f"{' | '.join(lines[-3:])}")
+        if label == "fuzz_scipy":
+            recs = [json.loads(ln) for ln in lines
+                    if ln.startswith('{"class"')]
+            for cls in dict.fromkeys(r["class"] for r in recs):
+                rs = [r for r in recs if r["class"] == cls]
+                print(f"fuzz_scipy {cls}: ok {sum(r['ok'] for r in rs)}/"
+                      f"{len(rs)}, status {sorted({r['status'] for r in rs})}"
+                      f", ADMM {[r['admm'] for r in rs]}")
+            summary = json.loads(lines[-1]) if lines and \
+                lines[-1].startswith("{") else {}
+            if summary.get("mismatches") != 0 or summary.get("total") != \
+                    len(recs) or len(recs) != 6 * FUZZ_SCIPY_PER_CLASS:
+                failed.append(label)
+        if rc != 0:
+            print(text[-3000:], file=sys.stderr)
+            failed.append(label)
+    if failed:
+        raise AssertionError(f"runs beside failed: {sorted(set(failed))}")
+
+
 HOST_LP = dict(m=1000, n_rand=9000, density=0.1)
 HOST_SEEDS = (11, 12, 13)
 HOST_CG = dict(m=200, n_rand=1800, density=0.1)
 HOST_EPS = 1e-6
-HIGHS_LIMIT_S = 60.0
 PROFILE_ADMM = 600
 # K5 against its plain version and scipy: f64 within 1e-12 of |A| |x| per
 # row (both sum the same products in other orders); f32 within 1e-5 of it.
@@ -3235,18 +3507,41 @@ def lp_certificate(A, b, c, sol):
     return pri, dual, abs(cx - by) / (1 + abs(cx) + abs(by))
 
 
+_HIGHS_RUNS = {}    # highs_key -> objective: one HiGHS run an LP
+
+
+def highs_key(A, b, c):
+    """The key of an LP in `_HIGHS_RUNS`: its shape, b and c (a seeded
+    instance is fixed by them)."""
+    import hashlib
+
+    return (A.shape, hashlib.sha256(np.ascontiguousarray(b).tobytes()
+                                    + np.ascontiguousarray(c).tobytes())
+            .hexdigest())
+
+
 def highs(A, b, c):
     """(optimal objective, seconds) of scipy's HiGHS interior point (with
-    crossover) on the LP."""
+    crossover) on the LP; an LP this run already gave HiGHS is not
+    solved again."""
     import time
 
     from scipy.optimize import linprog
 
+    key = highs_key(A, b, c)
     t0 = time.perf_counter()
-    ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None), method="highs-ipm")
-    if ref.status != 0:
-        raise AssertionError(f"scipy HiGHS failed: {ref.message}")
-    return ref.fun, time.perf_counter() - t0
+    if key not in _HIGHS_RUNS:
+        ref = linprog(c, A_eq=A, b_eq=b, bounds=(0, None),
+                      method="highs-ipm")
+        if ref.status != 0:
+            raise AssertionError(f"scipy HiGHS failed: {ref.message}")
+        _HIGHS_RUNS[key] = ref.fun
+    return _HIGHS_RUNS[key], time.perf_counter() - t0
+
+
+def host_lp_highs(seed):
+    """`highs` on the host LP of `seed` (for a worker process)."""
+    return highs(*host_lp(seed))
 
 
 def solve_host(torch, A, b, c, **kw):
@@ -3268,50 +3563,50 @@ def solve_host(torch, A, b, c, **kw):
 
 def phase_host_lp(torch, dev):
     """The host LP driver at full width: `solve_lp`'s workspace on a CSR A
-    of the smoke shape, three fresh seeds, against scipy's HiGHS (or, if
-    HiGHS takes longer than HIGHS_LIMIT_S on the first seed, the later
-    seeds against their own certificate).  Returns the first solve's K5
-    launches."""
+    of the smoke shape, three fresh seeds, each against scipy's HiGHS
+    (18-25 s a run on the card's host, so each seed's runs in a worker
+    process of its own while the card solves).  Returns the first
+    solve's K5 launches."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
     first = None
-    highs_ok = True
-    for seed in HOST_SEEDS:
-        A, b, c = host_lp(seed)
-        sec, sol, ws, launches = solve_host(torch, A, b, c)
-        layout = ws.A_op.layout
-        print(f"host LP seed {seed} m=1000 n=10000 nnz={A.nnz}: "
-              f"{sol.status_name}, IPM {sol.ipm_iters}, ADMM "
-              f"{sol.admm_iters}, wall {sec:.3f} s (setup "
-              f"{sol.setup_time:.3f} s, solve {sol.solve_time:.3f} s), "
-              f"{sol.admm_iters / sol.solve_time:.1f} ADMM it/s, layout "
-              f"{layout}, linsys {ws.linsys_kind}, K5 launches {launches} "
-              f"({launches / max(1, sol.admm_iters):.2f} per ADMM iteration)")
-        if layout != "bcsr" or ws.linsys_kind != "dense":
-            raise AssertionError(f"host LP: layout {layout}, linsys "
-                                 f"{ws.linsys_kind}; expected bcsr, dense")
-        if sol.status_name != "Solved" or launches <= 0:
-            raise AssertionError(f"host LP seed {seed}: {sol.status_name}, "
-                                 f"K5 launched {launches}x")
-        if not (np.isfinite(sol.x).all() and np.isfinite(sol.pobj)):
-            raise AssertionError(f"host LP seed {seed}: non-finite solution")
-        cert = lp_certificate(A, b, c, sol)
-        if highs_ok:
-            fun, hs = highs(A, b, c)
+    with ProcessPoolExecutor(len(HOST_SEEDS), mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        refs = {seed: pool.submit(host_lp_highs, seed) for seed in HOST_SEEDS}
+        for seed in HOST_SEEDS:
+            A, b, c = host_lp(seed)
+            sec, sol, ws, launches = solve_host(torch, A, b, c)
+            layout = ws.A_op.layout
+            print(f"host LP seed {seed} m=1000 n=10000 nnz={A.nnz}: "
+                  f"{sol.status_name}, IPM {sol.ipm_iters}, ADMM "
+                  f"{sol.admm_iters}, wall {sec:.3f} s (setup "
+                  f"{sol.setup_time:.3f} s, solve {sol.solve_time:.3f} s), "
+                  f"{sol.admm_iters / sol.solve_time:.1f} ADMM it/s, layout "
+                  f"{layout}, linsys {ws.linsys_kind}, K5 launches "
+                  f"{launches} ({launches / max(1, sol.admm_iters):.2f} per "
+                  "ADMM iteration)")
+            if layout != "bcsr" or ws.linsys_kind != "dense":
+                raise AssertionError(f"host LP: layout {layout}, linsys "
+                                     f"{ws.linsys_kind}; expected bcsr, "
+                                     "dense")
+            if sol.status_name != "Solved" or launches <= 0:
+                raise AssertionError(f"host LP seed {seed}: "
+                                     f"{sol.status_name}, K5 launched "
+                                     f"{launches}x")
+            if not (np.isfinite(sol.x).all() and np.isfinite(sol.pobj)):
+                raise AssertionError(f"host LP seed {seed}: non-finite "
+                                     "solution")
+            fun, hs = refs[seed].result()
+            _HIGHS_RUNS[highs_key(A, b, c)] = fun
             rel = abs(sol.pobj - fun) / max(1.0, abs(fun))
-            print(f"host LP seed {seed} vs scipy HiGHS ({hs:.1f} s, outside "
-                  f"the timed solve): pobj {sol.pobj:.10g} vs {fun:.10g}, "
+            print(f"host LP seed {seed} vs scipy HiGHS ({hs:.1f} s in a "
+                  f"worker process): pobj {sol.pobj:.10g} vs {fun:.10g}, "
                   f"relative gap {rel:.3e} (limit 1e-5)")
             if rel > 1e-5:
                 raise AssertionError(f"host LP seed {seed}: objective off")
-            highs_ok = hs <= HIGHS_LIMIT_S
-        else:
-            print(f"host LP seed {seed} held to its own certificate (HiGHS "
-                  f"took over {HIGHS_LIMIT_S:.0f} s on the first seed): "
-                  f"res_pri {cert[0]:.3e}, res_dual {cert[1]:.3e}, rel_gap "
-                  f"{cert[2]:.3e} (limit {HOST_EPS})")
-            if max(cert) >= HOST_EPS:
-                raise AssertionError(f"host LP seed {seed}: certificate off")
-        if first is None:
-            first = launches
+            if first is None:
+                first = launches
     return first
 
 
@@ -3611,6 +3906,23 @@ def main():
                     pdhg_batch)
     print(f"phase 10 (the multi-card layer): "
           f"{time.perf_counter() - t10:.1f} s")
+
+    t11 = time.perf_counter()
+    with running_beside(beside_commands()) as beside:
+        k2_fuzz_err, k3_fuzz_err = phase(
+            "K2/K3 parity on fuzz_conic batches", phase_fuzz_parity, torch,
+            dev)
+        k2_fuzz, k3_fuzz = phase("fuzz_conic sprint2", phase_fuzz_conic,
+                                 torch, dev, card)
+        phase("fuzz_conic host and PDHG", phase_fuzz_host, torch, dev)
+        k5_suites = phase("mittelmann_mini and mip17_mini sparse",
+                          phase_mps_suites, torch, dev)
+        phase("mittelmann_mini and mip17_mini dense", phase_mps_suites,
+              torch, dev, True)
+        phase("examples and fuzz_scipy (beside)", phase_beside, beside,
+              card)
+    print(f"phase 11 (validators and examples): "
+          f"{time.perf_counter() - t11:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
 
     def entry(name, source, replaces, launches, err, times, library=None,
@@ -3629,18 +3941,20 @@ def main():
               pool_launches=k1_pool, mesh_launches=k1_mesh),
         entry("conic_ladder_cluster_kernel", "conic_ladder.cu",
               "abip_tpu/ops/conic_pallas.py:703", k2_launches, k2_err, k2,
-              batched_rest_launches=rest["K2"]),
+              batched_rest_launches=rest["K2"], fuzz_launches=k2_fuzz,
+              fuzz_max_abs_err=k2_fuzz_err),
         entry("conic_delta_cluster_kernel", "conic_delta.cu",
               "abip_tpu/ops/conic_delta.py:718", k3_launches, k3_err, k3,
               batched_rest_launches=rest["K3"],
-              compaction_round_max_abs_err=k3_round_err),
+              compaction_round_max_abs_err=k3_round_err,
+              fuzz_launches=k3_fuzz, fuzz_max_abs_err=k3_fuzz_err),
         entry("conic_sprint_cluster_kernel", "conic_sprint.cu",
               "abip_tpu/ops/conic_pallas.py:379", k4_launches, k4_err, k4,
               batched_rest_launches=rest["K4"]),
         entry("csr_spmv_kernel", "bcsr_spmv.cu",
               "abip_tpu/ops/spmv_pallas.py:108", k5_launches, k5_err,
               (k5[0], k5[1], k5[3], k5[4]), library=k5[2],
-              mps_route_launches=k5_mps),
+              mps_route_launches=k5_mps, suite_launches=k5_suites),
         entry("sprint_cluster_kernel<stop>", "admm_sprint.cu",
               "abip_tpu/ops/admm_pallas.py:327", k6_launches, k6_err, k6),
         entry("sprint_cluster_kernel<plain>", "admm_sprint.cu",

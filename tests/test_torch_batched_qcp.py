@@ -149,19 +149,21 @@ def test_importing_the_port_leaves_jax_out():
 
 @pytest.mark.parametrize("seed", [8000, 8007, 8015])
 def test_jax_free_generator_is_bit_identical(seed):
-    """`chip_smoke.randcone` (on the port's ConeSpec, no JAX) draws the
-    same arrays as `benchmarks.conic_mini.randcone` at the dim-1020
-    spec; `randqcp_diag` the same as `randqcp(q_rank="diag")`."""
+    """The port's JAX-free `tools.generate.randcone` (the smoke's
+    generator) draws the same arrays as `benchmarks.conic_mini.randcone`
+    at the dim-1020 spec; `randqcp(q_rank="diag")` the same as the
+    reference's."""
+    from abip_tpu_torch.tools import generate
+
     spec = chip_smoke.CONIC_SPEC
     ref = conic_mini.randcone("x", chip_smoke.CONIC_M, JSpec(**spec), seed)
-    port = chip_smoke.randcone("x", chip_smoke.CONIC_M, ConeSpec(**spec),
-                               seed)
+    port = generate.randcone("x", chip_smoke.CONIC_M, ConeSpec(**spec), seed)
     for k in (1, 2, 3):
         np.testing.assert_array_equal(port[k], ref[k])
     assert port[5] == ref[5]
     small = chip_smoke.SMALL_SPEC
     ref = conic_mini.randqcp("q", 12, JSpec(**small), seed, q_rank="diag")
-    port = chip_smoke.randqcp_diag("q", 12, ConeSpec(**small), seed)
+    port = generate.randqcp("q", 12, ConeSpec(**small), seed, q_rank="diag")
     for k in (1, 2, 3, 4):
         np.testing.assert_array_equal(port[k], ref[k])
     assert port[6] == ref[6]

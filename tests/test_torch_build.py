@@ -1,11 +1,16 @@
-"""The kernel build's cache key (`abip_tpu_torch.ops.build.source_key`).
+"""The kernel build (`abip_tpu_torch.ops.build`): its cache key and its
+first use from several threads.
 
 A library is rebuilt only when its key changes, so the key must cover
 every file a source may include: an edit to a header of `csrc/` has to
 change the key of every source, or the card would run a stale library.
-Runs on the CPU (hashing needs no `nvcc`), on a copy of `csrc/`.
+Runs on the CPU (hashing needs no `nvcc`), on a copy of `csrc/`; the
+threaded first use runs a stand-in for `nvcc` and for `ctypes.CDLL`.
 """
 import shutil
+import stat
+import sys
+import threading
 
 import pytest
 
@@ -45,7 +50,7 @@ def test_nothing_builds_at_import():
     nvcc nor loads a library: `load` is only called at first launch."""
     from abip_tpu_torch.ops import admm_sprint, conic_dr, prox
 
-    assert build.load.cache_info().currsize == 0
+    assert build._load.cache_info().currsize == 0
     assert conic_dr.kernel_lib.cache_info().currsize == 0
     assert admm_sprint._kernel_lib.cache_info().currsize == 0
     assert prox._kernel_lib.cache_info().currsize == 0
@@ -67,3 +72,66 @@ def test_package_data_ships_every_kernel_source():
     assert any(f.endswith(".cuh") for f in files)
     for f in files:
         assert any(fnmatch.fnmatch(f, g) for g in globs), f
+
+
+@pytest.fixture
+def fake_toolchain(tmp_path, monkeypatch):
+    """`nvcc` replaced by a script that counts its calls in `calls` and,
+    after a pause that keeps every caller in flight, writes the `-o`
+    file; `ctypes.CDLL` by a plain object; the build directory moved to
+    `tmp_path`."""
+    calls = tmp_path / "calls"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        f"open({str(calls)!r}, 'a').write('x')\n"
+        "time.sleep(0.3)\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('library')\n")
+    nvcc.chmod(nvcc.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build.ctypes, "CDLL", lambda path: ("CDLL", path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    build._load.cache_clear()
+    yield calls
+    build._load.cache_clear()
+
+
+def test_first_use_from_eight_threads_builds_once(fake_toolchain):
+    """Eight threads that first need one kernel at once: one `nvcc` run,
+    one library, the same object for every caller, no temporary file
+    left behind."""
+    barrier = threading.Barrier(8)
+    got, errors = [], []
+
+    def first_use():
+        try:
+            barrier.wait(timeout=30)
+            got.append(build.load("conic_ladder"))
+        except Exception as e:  # noqa: BLE001  (reported below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=first_use) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert fake_toolchain.read_text() == "x"          # one build
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+    assert got[0].lib[0] == "CDLL" and got[0].build_seconds > 0
+    built = sorted(p.name for p in build.BUILD_DIR.iterdir())
+    assert built == [f"conic_ladder-{build.source_key('conic_ladder')}.so"]
+    assert build.load("conic_ladder") is got[0]
+
+
+def test_load_all_builds_each_source_once(fake_toolchain):
+    """`load_all` runs one build per source side by side; a second call
+    builds nothing."""
+    names = ["admm_delta", "conic_delta", "bcsr_spmv"]
+    libs = build.load_all(names)
+    assert fake_toolchain.read_text() == "x" * 3
+    assert build.load_all(names) == libs
+    assert fake_toolchain.read_text() == "x" * 3

@@ -619,3 +619,92 @@ def test_k2k4_unshifted_rewrite_loses_digits_in_the_body_sums():
     worst = {k: max(r[k] for r in rec) for k in rec[0]}
     assert worst["unshifted"] > 2.0 * worst["shifted"], worst
     assert worst["shifted"] < 1.5 * worst["direct"], worst
+
+
+def _fuzz_case(cls):
+    """The fuzz_conic batch of `cls` (18 lanes, free and zero blocks,
+    dim 21, m 7, the Woodbury form), prepared as the tool's batched call
+    prepares it."""
+    cones, stacks, _ = chip_smoke.conic_batch(fuzz=cls, count=18)
+    P = chip_smoke.conic_prepared(torch, cones, stacks, DEV)
+    return cones, P, cone_operands(cones, DEV), P.dss.form == "woodbury"
+
+
+@pytest.mark.parametrize("cls", ["zero_mixed", "mixed"])
+def test_k2_sums_at_fuzz_shapes_sit_within_the_f32_noise_floor(cls):
+    """On fuzz_conic's small batches the plain f32 ladder itself sits
+    further from an f64 run than the stated absolute term (1e-5 of the
+    scale), so K2 is held there with the noise floor
+    (`chip_smoke.ladder_parity(noise_floor=True)`): K2's sums, in the
+    launch plan's cluster, take the plain version's decisions, land
+    within the stated tolerance with each absolute term at least 3x the
+    plain version's distance from f64 (the row's per continuous slot,
+    none on its decisions), and at most 3x that distance from the f64
+    run, y alone too."""
+    cones, P, co, wb = _fuzz_case(cls)
+    op = chip_smoke.cold_ladder_operands(torch, P, cones)
+    plan = cdr.dr_launch_plan(P.A.shape[1], P.A.shape[2], co.start.shape[0])
+    assert plan.cluster == CLUSTER and P.A.shape[2] == 21 and wb
+    tm = torch.full((op.A.shape[0],), 2048, dtype=torch.int32)
+    kw = dict(probe=8, woodbury=wb, psi=1.0)
+    plain = cdr._dr_ladder_compute(op, co, tm, **kw)
+    exact = cdr._dr_ladder_compute(type(op)(*[x.double() for x in op]), co,
+                                   tm, **kw)
+    rw = _run_cluster(op, co, tm, ladder=True, woodbury=wb, form="shifted")
+    x_noise = float((plain[1].double() - exact[1]).abs().max())
+    assert x_noise > chip_smoke.REL_SCALE * float(plain[1].abs().max())
+    for c in (3, 4, 6):
+        assert torch.equal(rw[4][:, c], plain[4][:, c])
+    names = ("y", "x", "vy", "vx", "row")
+    floor = chip_smoke.ladder_noise_floor(names, plain, exact)
+    assert (floor["row"][[3, 4, 6]] == 0).all()
+    chip_smoke.compare_conic(rw, plain, names, cls, floor=floor)
+    chip_smoke.accuracy_vs_f64(rw, plain, exact, cls)
+    chip_smoke.accuracy_vs_f64(rw[:1], plain[:1], exact[:1], cls + " y")
+
+
+@pytest.mark.parametrize("cls", ["zero_mixed", "mixed"])
+def test_k2_first_fuzz_iteration_in_trips_of_one(cls):
+    """K2 as fuzz_conic launches it (inner_crit_period=1, so trips of 1),
+    over its first iteration, whose end takes the first stage decision
+    (`chip_smoke.ladder_parity(T=1, probe=1)`): K2's sums take the plain
+    version's decisions and land within the stated tolerance, with no
+    noise floor, and at most 3x its distance from the f64 run."""
+    cones, P, co, wb = _fuzz_case(cls)
+    op = chip_smoke.cold_ladder_operands(torch, P, cones)
+    tm = torch.ones((op.A.shape[0],), dtype=torch.int32)
+    kw = dict(probe=1, woodbury=wb, psi=1.0)
+    plain = cdr._dr_ladder_compute(op, co, tm, **kw)
+    exact = cdr._dr_ladder_compute(type(op)(*[x.double() for x in op]), co,
+                                   tm, **kw)
+    rw = _run_cluster(op, co, tm, ladder=True, woodbury=wb, form="shifted",
+                      probe=1)
+    assert (plain[4][:, 6] == 1).all()
+    for c in (3, 4, 6):
+        assert torch.equal(rw[4][:, c], plain[4][:, c])
+    chip_smoke.compare_conic(rw, plain, ("y", "x", "vy", "vx", "row"), cls)
+    chip_smoke.accuracy_vs_f64(rw, plain, exact, cls)
+
+
+@pytest.mark.parametrize("cls", ["zero_mixed", "mixed"])
+def test_k3_first_launch_at_fuzz_shapes(cls):
+    """K3's first launch in fuzz_conic's run: one iteration
+    (inner_crit_period=1) from the state its phase 1 hands over, with
+    K3's block sums, within the stated tolerance of the plain chunk and
+    at most 3x its distance from the f64 run."""
+    cones, P, co, wb = _fuzz_case(cls)
+    st = chip_smoke.conic_phase1_state(torch, P, cones, inner_crit_period=1)
+    anc = chip_smoke.conic_anchor(torch, P, cones, st, 0.0)
+    tm = torch.full((anc.A.shape[0],), 1, dtype=torch.int32)
+    names = ("dy", "dx", "dvy", "dvx", "dtau", "dkap")
+
+    def plain_chunk(a):
+        dy, dx, dvy, dvx, row = cd._conic_delta_compute(a, co, tm, probe=1,
+                                                        woodbury=wb)
+        return dy, dx, dvy, dvx, row[:, 0:1], row[:, 1:2]
+
+    rw = _run_k3(anc, co, 1, wb)
+    plain = plain_chunk(anc)
+    exact = plain_chunk(cd.ConicDeltaAnchor(*[x.double() for x in anc]))
+    chip_smoke.compare_conic(rw, plain, names, f"K3 {cls}")
+    chip_smoke.accuracy_vs_f64(rw, plain, exact, f"K3 {cls}")

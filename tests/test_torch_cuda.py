@@ -13,7 +13,7 @@ f64 ADMM steps (`chip_smoke.mid_solve_state`).  K2 (conic ladder), K3
 (conic delta chunk) and K4 (conic sprint), each one thread-block cluster
 per lane too: the cases and tolerances of `chip_smoke.ladder_parity`,
 `chip_smoke.delta_parity` and `chip_smoke.conic_sprint_parity`, on
-instances of the JAX-free `chip_smoke.randcone`, in every form their
+instances of the JAX-free `tools.generate.randcone`, in every form their
 plans take.  K8 (barrier step): `chip_smoke.phase_barrier_step`.  The
 shape repair: each kernel's spilled form (its layout in a global
 workspace, for shapes no shared memory holds) against the plain version,
@@ -49,6 +49,7 @@ import chip_smoke  # noqa: E402
 from abip_tpu_torch.device import limit_shared_memory  # noqa: E402
 from abip_tpu_torch.ops import admm_delta as delta  # noqa: E402
 from abip_tpu_torch.ops import conic_delta, conic_dr  # noqa: E402
+from abip_tpu_torch.tools.generate import randcone, randqcp  # noqa: E402
 
 
 @pytest.fixture
@@ -452,7 +453,7 @@ def test_host_lp_float32_on_card(cuda_device, sparse):
                                   "cg"])
 def test_solve_qcp_on_card_matches_cpu(cuda_device, case):
     """`solve_qcp` on the card (its default device) against the port on
-    the CPU, on a small `chip_smoke.randcone` / `randqcp` instance: the
+    the CPU, on a small `tools.generate.randcone` / `randqcp` instance: the
     same f64 driver, so equal status and IPM count, ADMM counts within
     10% (cuSOLVER and LAPACK round the factor differently) and objectives
     within 1e-6 relative; the iterate lives on the card."""
@@ -463,13 +464,13 @@ def test_solve_qcp_on_card_matches_cpu(cuda_device, case):
     cones = ConeSpec(**chip_smoke.SMALL_SPEC)
     kw, Q = {}, None
     if case in ("chol", "inverse_mixed", "cg"):
-        _, A, b, c, _, star = chip_smoke.randcone("c", 8, cones, 41)
+        _, A, b, c, _, star = randcone("c", 8, cones, 41)
         kw = {"inverse_mixed": dict(dense_mode="inverse_mixed", rho_y=1e-3),
               "cg": dict(linsys="cg")}.get(case, {})
     elif case == "diag-q":
-        _, A, b, c, Q, _, star = chip_smoke.randqcp_diag("d", 8, cones, 42)
+        _, A, b, c, Q, _, star = randqcp("d", 8, cones, 42, q_rank="diag")
     else:
-        _, A, b, c, Q, _, star = chip_smoke.randqcp("f", 8, cones, 43)
+        _, A, b, c, Q, _, star = randqcp("f", 8, cones, 43)
     s = conic_defaults(eps=1e-7, **kw)
     ws = ConicWorkspace(A, b, c, cones, Q=Q, settings=s)
     assert ws.device.type == "cuda" and ws.b.is_cuda
@@ -759,7 +760,7 @@ def test_het_batch_on_card(cuda_device, route):
              ConeSpec(soc=(6, 3), nonneg=8), ConeSpec(rsoc=(5,), nonneg=12))
     probs, stars = [], []
     for i, (spec, m) in enumerate(zip(specs, (7, 8, 6))):
-        _, A, b, c, _, star = chip_smoke.randcone("h", m, spec, 500 + i)
+        _, A, b, c, _, star = randcone("h", m, spec, 500 + i)
         probs.append((A, b, c, None, spec))
         stars.append(star)
     kw = dict(eps=1e-6, inner_crit_period=8, route=route)
@@ -1021,3 +1022,31 @@ def test_nccl_that_cannot_form_fails(cuda_device):
                        capture_output=True, text=True, timeout=300)
     assert r.returncode != 0, r.stdout
     assert "FORMED" not in r.stdout and "gloo" not in r.stdout.lower()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cls", ["free_mixed", "zero_mixed", "mixed"])
+def test_fuzz_conic_free_and_zero_blocks_on_card(cuda_device, cls):
+    """`tools.fuzz_conic --batched --engine sprint2` on the card, four
+    lanes of a class with free (and zero) cone blocks: K2 and K3 launch,
+    every lane passes the tool's contract, with the CPU run's statuses."""
+    from abip_tpu_torch.tools import fuzz_conic
+
+    conic_dr.ladder_cuda.launches = 0
+    conic_delta.conic_delta_cuda.launches = 0
+    card = fuzz_conic.run_class(cls, 4, batched=True, engine="sprint2")
+    assert conic_dr.ladder_cuda.launches > 0
+    assert conic_delta.conic_delta_cuda.launches > 0
+    cpu = fuzz_conic.run_class(cls, 4, batched=True, engine="sprint2",
+                               device="cpu")
+    assert all(r["ok"] for r in card), card
+    assert [r["status"] for r in card] == [r["status"] for r in cpu]
+
+
+@pytest.mark.cuda
+def test_k2_k3_on_fuzz_batches(cuda_device):
+    """K2 and K3 against their plain versions on fuzz_conic's zero_mixed
+    and mixed batches, as the smoke's phase 11 holds them
+    (`chip_smoke.phase_fuzz_parity`)."""
+    k2, k3 = chip_smoke.phase_fuzz_parity(torch, cuda_device)
+    assert k2 >= 0.0 and k3 >= 0.0

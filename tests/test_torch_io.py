@@ -197,6 +197,26 @@ def test_solve_mps_matches_reference(dense):
         1.0, np.abs(ref.x_std).max()))
 
 
+@pytest.mark.parametrize("suite,name,ext", [
+    ("mittelmann_mini", "stair01", ".mps.gz"),
+    ("mittelmann_mini", "grid01", ".mps.gz"),
+    ("mip17_mini", "pack01", ".mps"),
+    ("mip17_mini", "assign01", ".mps")])
+def test_solve_mps_larger_suites_match_reference(suite, name, ext, tmp_path):
+    """Instances of the mittelmann_mini and mip17_mini suites, written by
+    the port's MPS writer (gzipped as `tests/test_mittelmann_mini.py`
+    writes them) and solved by both packages."""
+    import importlib
+
+    p = importlib.import_module(f"benchmarks.{suite}").MANIFEST[name]()
+    path = str(tmp_path / f"{name}{ext}")
+    write_mps(p, path)
+    port, _ = presolve.solve_mps(path, eps=1e-6, **CPU)
+    ref, _ = jpresolve.solve_mps(path, eps=1e-6)
+    assert ref.status_name == "Solved"
+    _assert_solves_equal(ref, port)
+
+
 def test_solve_mps_routes():
     """method="device" runs the batched device solve at B=1: held to the
     reference's route on the same file (equal status, ADMM counts within

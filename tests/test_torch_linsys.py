@@ -95,3 +95,31 @@ def test_dense_solver_solves_the_kkt_system():
     zy, zx = zy.numpy(), zx.numpy()
     np.testing.assert_allclose(RHO_Y * zy + A @ zx, wy, atol=1e-10)
     np.testing.assert_allclose(A.T @ zy - zx, wx, atol=1e-10)
+
+
+def test_lp_make_solver_seam_matches_reference():
+    """`abip_tpu_torch.lp.make_solver`, the public seam the reference's
+    `abip_tpu.lp` re-exports, builds the same KKT solver (here CG on a
+    scipy sparse A) as the reference's seam on the same matrix."""
+    import scipy.sparse as sp
+
+    from abip_tpu import lp as jlp
+    from abip_tpu_torch import lp
+
+    assert lp.make_solver is make_solver
+    A = sp.random(12, 30, density=0.3, random_state=np.random.RandomState(6),
+                  format="csr")
+    js = jlp.make_solver(JOp.from_scipy_sparse(A), 12, 30, RHO_Y,
+                         JSettings(linsys="auto"))
+    ps = lp.make_solver(LinearOperator.from_scipy_sparse(A), 12, 30, RHO_Y,
+                        Settings(linsys="auto"))
+    assert type(ps).__name__ == type(js).__name__ == "CGSolver"
+    rng = np.random.default_rng(7)
+    wy, wx = rng.standard_normal(12), rng.standard_normal(30)
+    jy, jx, jits = js.solve(jnp.asarray(wy), jnp.asarray(wx), 0)
+    y, x, its = ps.solve(torch.as_tensor(wy), torch.as_tensor(wx), 0)
+    assert its == int(jits)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=1e-10,
+                               atol=1e-10)
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-10,
+                               atol=1e-10)

@@ -183,6 +183,21 @@ def test_bcsr_dispatch_by_device():
         spmv.bcsr_matvec_cuda(B, torch.ones(50, dtype=torch.float64))
 
 
+@pytest.mark.parametrize("case", IDS)
+def test_bcsr_padded_shape_and_density_equal_reference(case):
+    A = _matrix(case)
+    ref = JBCSR.from_scipy(A)
+    port = spmv.BCSRMatrix.from_scipy(A)
+    assert port.padded_shape == ref.padded_shape
+    assert port.density_blocks == ref.density_blocks
+
+
+@pytest.mark.parametrize("case", ["100x300", "empty-rows"])
+def test_ell_fill_equals_reference(case):
+    A = _matrix(case)
+    assert ELLMatrix.from_scipy(A).fill == JELL.from_scipy(A).fill
+
+
 @pytest.mark.parametrize("case", ["100x300", "empty-rows"])
 def test_ell_packing_and_matvec(case):
     A = _matrix(case)
