@@ -19,14 +19,14 @@ duration:
 2. host LP driver: hold K5 against its plain version, the tile product
    and scipy's f64 product (A and A' of the smoke instance, ragged
    shapes, rows of widely differing lengths; f64 and f32);
-   solve three fresh smoke LPs (m=1000, n=10000, density 0.1, the shape
+   solve a fresh smoke LP (m=1000, n=10000, density 0.1, the shape
    of `benchmarks/results/r05_lp_m1000_tpu.json`) through `solve_lp`'s
    workspace on a CSR A, as a user calls it (BCSR layout, dense
-   Cholesky), against scipy's HiGHS (run in worker processes while the
-   card solves); the same driver with linsys="cg" at
+   Cholesky), against scipy's HiGHS (run in a worker process from the
+   smoke's start); the same driver with linsys="cg" at
    m=200; time K5 cold and warm against its plain version and cuSPARSE
    (int64 and int32 indices), and at each group size; profile one
-   solve;
+   solve over PROFILE_ADMM iterations;
 3. LP batch: hold K1 (one thread-block cluster per lane) against its
    plain PyTorch version on mid-solve anchors (B=16 at the smoke shape
    m=50, n=2000, a ragged m=37, n=411, and m=200, n=3000, where A and
@@ -58,10 +58,12 @@ duration:
    4, from the cold start and at k0=64, then mid-chunk stops); solve a
    fresh dim-1020 batch with `phase1="sprint"` (K4 + K3) against the
    known optima, time it as a median of 3 and profile one solve; hold K8
-   against its plain version in f32 and f64, including the prox
+   against its plain version in f32 and f64 at 1,237, 32,000 and 2^24
+   elements and on views at offsets of 1-3 elements, including the prox
    arguments where the reference's guarded form fails; time K4 (at
    cluster sizes 4, 6, 8 and 16 in every residency that fits and
-   spilled) and K8;
+   spilled) and K8 (at 32,000 beside an empty kernel's launch, and at
+   2^24 against its byte bound);
 6. the shape repair: every kernel takes every shape, spilling its
    layout to a global workspace where no shared memory holds a CTA.
    With the launch plans held to no shared memory
@@ -73,7 +75,7 @@ duration:
    not hold in shared memory, solved on the card through the kernels
    (K2 with A streamed through L2 at C=6): every lane Solved within 1e-5
    of its known optimum, as the reference solves it;
-7. the single-instance front door: three fresh dim-1020 instances
+7. the single-instance front door: a fresh dim-1020 instance
    through `solve_qcp` with conic defaults (dense "chol", Woodbury form)
    and again with dense_mode="inverse_mixed", rho_y=1e-3; a diagonal Q
    and a full PSD Q (the primal form); one n=5100 instance of
@@ -95,20 +97,22 @@ duration:
    its first barrier stages), precision "f64" and a full PSD Q at B=4;
    `solve_qcp_device` at its defaults; `host_polish` of a k_cap-stopped
    lane on the card; `solve_qcp_het_batch` over the conic_mini and
-   cblib_mini suites, as one padded batch and per instance; the LASSO and
-   SVM front doors (`solve_lasso`, `solve_lasso_batch` against a FISTA
-   oracle, `solve_svm` in both forms against each other).  Each part
+   cblib_mini suites as one padded batch, conic_mini also per instance;
+   the LASSO and SVM front doors (`solve_lasso`, `solve_lasso_batch`
+   against a FISTA oracle, `solve_svm` in both forms against each
+   other).  Each part
    prints its wall, ADMM counts and K2/K3/K4 launches;
 9. the rest of the single-card port: B=8 same-pattern PageRank families
    (`tools/pagerank_batch_bench._family`'s construction) at n = 1e4 and
    1e5 through `solve_lp_batch_coo` (every lane at 1'x = 1 within 1e-5;
    profiled over the first 3 barrier stages); 48 smoke LPs through the
    lane-swap stream (B=16, seg_chunks=32, qres_period=64) and through
-   three fixed delta batches, each against HiGHS; 8 smoke LPs through
-   the thread pool at 1 and 4 workers (equal bit for bit, K1 counted,
-   then held to its plain version from a worker thread's stream);
-   restarted PDHG on every netlib_mini .mps (`solve_mps(method="pdhg")`)
-   and cblib_mini .cbf and on a B=16 mixed-precision smoke batch;
+   three fixed delta batches, each against HiGHS; 8 smoke
+   LPs through the thread pool at 1 and 4 workers (equal bit for bit, K1
+   counted, then held to its plain version from a worker thread's
+   stream); restarted PDHG on every PDHG_FILE_STEP-th netlib_mini .mps
+   (`solve_mps(method="pdhg")`) and cblib_mini .cbf and on a B=16
+   mixed-precision smoke batch;
    crossover (`python -m abip_tpu_torch blend01.mps --crossover --json`,
    then every netlib_mini ADMM solve of phase 7); `solve_lp_grad` on a
    smoke LP (the gradient against y and central differences, one
@@ -123,9 +127,10 @@ duration:
    HiGHS) and `shard(linsys="cg")` at m=200; `ConicWorkspace.shard` on a
    dim-1020 instance through the CG Schur solver; `solve_lp_batch(mesh=)`
    on the B=16 smoke batch (K1, counted as `mesh_launches`) and
-   `solve_lp_pdhg_batch(mesh=)` on phase 9's batch.  It prints each wall
-   and the ratio sharded/unsharded: on one rank the collectives'
-   overhead, not scaling;
+   `solve_lp_pdhg_batch(mesh=)` on phase 9's batch (solved again).  It
+   prints each wall and the ratio sharded/unsharded: on one rank the
+   collectives' overhead, not scaling.  It runs in a process of its own
+   (`python3 chip_smoke.py --part multi-card`) beside phases 7-11;
 11. the validators and examples: K2 and K3 held to their plain versions
    on the fuzz_conic zero_mixed and mixed batches (free and zero cone
    blocks, dim 21, m 7, 18 lanes; K2 over its first iteration in trips
@@ -139,17 +144,24 @@ duration:
    PDHG routes on FUZZ_HOST_CLASSES; every file of mittelmann_mini and
    mip17_mini through `solve_mps` with dense=False (K5 held to its plain
    version on each A and A' that packs BCSR, counted as
-   `suite_launches`) and dense, against HiGHS; beside these,
-   BESIDE_WORKERS at a time, each a process of its own on the card: the
-   eight examples of `abip_tpu_torch/examples/` and `python -m
+   `suite_launches`), and mip17_mini's dense, against HiGHS (in a
+   process of its own, `--part suites`); the eight examples of
+   `abip_tpu_torch/examples/` and `python -m
    abip_tpu_torch.tools.fuzz_scipy`.  Every run must exit 0 and every
    validator count no mismatch.
 
-    python3 chip_smoke.py --ab PARENT
+From phase 7's CG instance on, phase 10, phase 11's suites, the
+examples and fuzz_scipy run beside the main process, BESIDE_WORKERS
+processes at a time on the card, the longest first; phase 11 ends when
+the last of them has.  The smoke prints its total wall beside the card's name and
+power limit.
 
-times K2 and K4 in this checkout and in the checkout at PARENT (the
-parent commit, unpacked with `git archive`), each in a process of its
-own, in the order this, PARENT, this, and prints their times.
+    python3 chip_smoke.py --ab PARENT [K2K4 | K8]
+
+times K2 and K4 (the default), or K8, in this checkout and in the
+checkout at PARENT (the parent commit, unpacked with `git archive`),
+each in a process of its own, in the order this, PARENT, this, and
+prints their times.
 
 Each main path runs with its kernels' launch counts set to 0 just
 before it and read just after (K5 also on the MPS route of phase 7,
@@ -1373,55 +1385,141 @@ def conic_sprint_parity(torch, dev, label, case, form=None):
 # points within 1e-6 relative of the f64 prox.
 STEP_TOL = {"f32": 1e-6, "f64": 1e-12}
 STEP_FAULT_T = (-1e-20, -1e-15)
+STEP_LAM, STEP_ALPHA = 1e-4, 1.8
+STEP_SIZES = (32_000, 1_237, 2 ** 24)
+STEP_OFFSETS = (1, 2, 3)      # views x[k:k + n] of K8's operands
+STEP_VIEW_N = 32_000
+STEP_REPS = 20                # launches a timing at 2^24 averages over
 
 
-def phase_barrier_step(torch, dev):
-    """K8 on a 32,000-vector and a ragged 1,237-vector, f32 and f64, with
-    the arguments t = -1e-20 and -1e-15 where the reference's guarded
-    prox fails.  Returns (largest |kernel - plain| in f32, launches)."""
+def _step_inputs(torch, dev, dt, n, offset=0, only_first=False):
+    """K8's three operands of length n, numpy-seeded, on the card: views
+    at `offset` elements into longer tensors (only u_t's where
+    `only_first`), with the first two elements at the reference guard's
+    fault points t = STEP_FAULT_T."""
+    rng = np.random.default_rng(n + offset)
+    x = [rng.standard_normal(n + offset) for _ in range(3)]
+    x[0][offset:offset + 2] = np.asarray(STEP_FAULT_T) / STEP_ALPHA
+    x[1][offset:offset + 2] = 0.0
+    x[2][offset:offset + 2] = 0.0
+    out = []
+    for i, a in enumerate(x):
+        k = offset if (i == 0 or not only_first) else 0
+        out.append(torch.tensor(a[offset - k:], dtype=dt, device=dev)[k:])
+    return out
+
+
+def step_parity(torch, kind, t, label):
+    """K8 on the operands `t` against its plain version on the card, and
+    its prox at the fault points against the f64 prox.  Returns the
+    largest |kernel - plain|."""
     from abip_tpu_torch import hsd
     from abip_tpu_torch.ops.prox import _ref_impl, barrier_step_cuda
 
-    lam, alpha = 1e-4, 1.8
+    ker = barrier_step_cuda(*t, STEP_LAM, STEP_ALPHA)
+    plain = _ref_impl(*t, STEP_LAM, STEP_ALPHA)
+    scale = max(float(x.abs().max()) for x in t)
+    diff = 0.0
+    for k, p in zip(ker, plain):
+        k, p = k.double(), p.double()
+        d = (k - p).abs()
+        bad = d > STEP_TOL[kind] * p.abs() + STEP_TOL[kind] * scale
+        if not bool(torch.isfinite(k).all()) or bool(bad.any()):
+            raise AssertionError(f"K8 {label} {kind}: |kernel-plain| "
+                                 f"{float(d.max()):.3e}")
+        diff = max(diff, float(d.max()))
+    # the prox argument as the kernel forms it, then the f64 prox
+    t64 = (STEP_ALPHA * t[0][:2].double()
+           + (1.0 - STEP_ALPHA) * t[1][:2].double() - t[2][:2].double())
+    want = hsd.barrier_prox(t64, STEP_LAM).cpu().numpy()
+    got = ker[0][:2].double().cpu().numpy()
+    rel = np.abs(got - want) / want
+    if (rel > 1e-6).any():
+        raise AssertionError(f"K8 {label} {kind}: prox at {STEP_FAULT_T} "
+                             f"{got.tolist()} vs f64 {want.tolist()}")
+    print(f"parity K8 {label} {kind}: max|kernel-plain| {diff:.3e} "
+          f"(rtol {STEP_TOL[kind]} + that of the inputs' scale: ok); prox "
+          f"at t={list(STEP_FAULT_T)}: rel {rel.max():.1e} from f64 "
+          f"(limit 1e-6)")
+    return diff
+
+
+def phase_barrier_step(torch, dev):
+    """K8 in f32 and f64 on vectors of 32,000, 1,237 and 2^24 elements,
+    on views at offsets of 1-3 elements (the scalar head, the vector body
+    and the tail), and with only u_t at an offset (the scalar form), each
+    with the arguments t = -1e-20 and -1e-15 where the reference's
+    guarded prox fails.  Returns (largest |kernel - plain| in f32,
+    launches)."""
+    from abip_tpu_torch.ops.prox import barrier_step_cuda
+
     barrier_step_cuda.launches = 0
     worst = 0.0
-    for n in (32_000, 1_237):
-        rng = np.random.default_rng(n)
-        x = [rng.standard_normal(n) for _ in range(3)]
-        x[0][:2] = np.asarray(STEP_FAULT_T) / alpha
-        x[1][:2] = 0.0
-        x[2][:2] = 0.0
-        for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
-            t = [torch.tensor(a, dtype=dt, device=dev) for a in x]
-            ker = barrier_step_cuda(*t, lam, alpha)
-            plain = _ref_impl(*t, lam, alpha)
-            torch.cuda.synchronize()
-            atol = STEP_TOL[kind] * max(np.abs(a).max() for a in x)
-            diff = 0.0
-            for k, p in zip(ker, plain):
-                k, p = k.double().cpu().numpy(), p.double().cpu().numpy()
-                d = np.abs(k - p)
-                if not np.isfinite(k).all() or (
-                        d > STEP_TOL[kind] * np.abs(p) + atol).any():
-                    raise AssertionError(f"K8 n={n} {kind}: |kernel-plain| "
-                                         f"{d.max():.3e}")
-                diff = max(diff, float(d.max()))
-            # the prox argument as the kernel forms it, then the f64 prox
-            t64 = (alpha * t[0][:2].double() + (1.0 - alpha) * t[1][:2].double()
-                   - t[2][:2].double())
-            want = hsd.barrier_prox(t64, lam).cpu().numpy()
-            got = ker[0][:2].double().cpu().numpy()
-            rel = np.abs(got - want) / want
-            if (rel > 1e-6).any():
-                raise AssertionError(f"K8 n={n} {kind}: prox at {STEP_FAULT_T}"
-                                     f" {got.tolist()} vs f64 {want.tolist()}")
+    for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        cases = [(f"n={n}", dict(n=n)) for n in STEP_SIZES]
+        cases += [(f"n={STEP_VIEW_N} views at +{k}",
+                   dict(n=STEP_VIEW_N, offset=k)) for k in STEP_OFFSETS]
+        cases.append((f"n={STEP_VIEW_N} u_t alone at +1",
+                      dict(n=STEP_VIEW_N, offset=1, only_first=True)))
+        for label, case in cases:
+            t = _step_inputs(torch, dev, dt, **case)
+            diff = step_parity(torch, kind, t, label)
             if kind == "f32":
                 worst = max(worst, diff)
-            print(f"parity K8 n={n} {kind}: max|kernel-plain| {diff:.3e} "
-                  f"(rtol {STEP_TOL[kind]} + that of the inputs' scale: ok); "
-                  f"prox at t={list(STEP_FAULT_T)}: {got.tolist()} vs f64 "
-                  f"{want.tolist()} (rel {rel.max():.1e}, limit 1e-6)")
+            del t
+    torch.cuda.synchronize()
     return worst, barrier_step_cuda.launches
+
+
+def step_timing(torch, dev, card):
+    """K8 in f32 and f64 at 32,000 elements (queued behind a device wait,
+    beside an empty kernel's launch timed the same way: the floor) and at
+    2^24 (events over STEP_REPS launches; 336 / 671 MB, beyond the 50 MB
+    L2, so every launch reads cold), each against its plain version and
+    its byte bound.  Returns ({kind: {size: (ms, plain, bound_ms,
+    bound_by)}}, the floor in ms)."""
+    from abip_tpu_torch.ops.prox import (_ref_impl, barrier_step_cuda,
+                                         empty_launch_cuda)
+    from abip_tpu_torch.utils.timing import cuda_ms, queued_ms
+
+    def reps(fn, count):
+        def run():
+            for _ in range(count):
+                fn()
+        return run
+
+    floor = queued_ms(lambda: empty_launch_cuda(dev))
+    print(f"timing empty kernel launch [{card}]: {floor * 1e3:.2f} us "
+          f"(the floor of a short kernel timed the same way)")
+    out = {}
+    for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
+        out[kind] = {}
+        for n in (32_000, 2 ** 24):
+            g = torch.Generator(device=dev).manual_seed(n)
+            x = [torch.randn(n, dtype=dt, device=dev, generator=g)
+                 for _ in range(3)]
+
+            def ker():
+                return barrier_step_cuda(*x, STEP_LAM, STEP_ALPHA)
+
+            def plain():
+                return _ref_impl(*x, STEP_LAM, STEP_ALPHA)
+
+            if n == 32_000:
+                ms, plain_ms = queued_ms(ker), queued_ms(plain)
+            else:
+                ms = cuda_ms(reps(ker, STEP_REPS), iters=3) / STEP_REPS
+                plain_ms = cuda_ms(plain, iters=3)
+            nbytes = 5 * n * x[0].element_size()
+            bms, by = bound_ms(nbytes, 12.0 * n, kind)
+            out[kind][n] = (ms, plain_ms, bms, by)
+            print(f"timing K8 n={n} {kind} [{card}]: kernel {ms * 1e3:.2f} "
+                  f"us, plain {plain_ms * 1e3:.2f} us, bound "
+                  f"{bms * 1e3:.3f} us ({by}), {100 * bms / ms:.1f}% of the "
+                  f"bound, {nbytes / ms / 1e9:.3f} TB/s; empty launch "
+                  f"{floor * 1e3:.2f} us")
+            del x
+    return out, floor
 
 
 def solve_sprint(torch, stacks, dev, **kw):
@@ -1598,12 +1696,11 @@ def phase_conic_sprint_main(torch, dev, card):
 
 def phase_sprint_kernel_timing(torch, dev, card):
     """K4 (one T=512 chunk at dim-1020 B=16 from the cold start) and K8
-    (32,000 elements, f32 and f64) against their plain versions, with
-    bounds.  Returns the K4 and the f32 K8 tuples."""
+    (`step_timing`) against their plain versions, with bounds.  Returns
+    the K4 tuple and `step_timing`'s result."""
     from abip_tpu_torch.cones import cone_operands
     from abip_tpu_torch.ops.conic_dr import _dr_sprint_compute, dr_sprint_cuda
-    from abip_tpu_torch.ops.prox import _ref_impl, barrier_step_cuda
-    from abip_tpu_torch.utils.timing import cuda_ms, queued_ms
+    from abip_tpu_torch.utils.timing import cuda_ms
 
     cones, stacks, _ = conic_batch(8600)
     P = conic_prepared(torch, cones, stacks, dev)
@@ -1628,18 +1725,7 @@ def phase_sprint_kernel_timing(torch, dev, card):
           f"{dr_plan_line(torch, P, co, 'sprint')}), plain version "
           f"{plain:.3f} ms, bound {bms:.4f} ms ({by})")
     k4 = (ms, plain, bms, by)
-    k8 = None
-    for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
-        x = [torch.randn(32_000, dtype=dt, device=dev) for _ in range(3)]
-        ms = queued_ms(lambda: barrier_step_cuda(*x, 1e-4, 1.8))
-        plain = queued_ms(lambda: _ref_impl(*x, 1e-4, 1.8))
-        nbytes = 5 * x[0].numel() * x[0].element_size()
-        bms, by = bound_ms(nbytes, 12.0 * x[0].numel(), kind)
-        print(f"timing K8 n=32000 {kind} [{card}]: kernel {ms * 1e3:.2f} us, "
-              f"plain {plain * 1e3:.2f} us, bound {bms * 1e3:.3f} us ({by})")
-        if k8 is None:
-            k8 = (ms, plain, bms, by)
-    return k4, k8
+    return k4, step_timing(torch, dev, card)
 
 
 # ---------------------------------------------------------------------------
@@ -1742,7 +1828,7 @@ def phase_repair(torch, dev):
 
 # fresh dim-1020 instances of CONIC_SPEC through `solve_qcp`, conic
 # defaults (rho_y=1e-6, linsys "auto": dense "chol", Woodbury form)
-FRONT_SEEDS = (8700, 8701, 8702)
+FRONT_SEEDS = (8700,)         # cut from (8700, 8701, 8702)
 FRONT_EPS = 1e-6
 # `tools/conic_bench.family(scale=25)`: the smallest of that family where
 # linsys="auto" takes the CG Schur solver (n > 4096); dense A is 69 MB
@@ -2096,6 +2182,8 @@ POLISH_MU_FLOOR = 1e-2
 # the suites' tolerance: at eps=1e-6 rand_lp_rows.cbf ends 9.8e-6 from its
 # optimum (the port on a CPU), too near the 1e-5 limit
 HET_EPS = 1e-7
+# the routes that take cblib_mini as well as conic_mini (cut from both)
+HET_CBF_ROUTES = ("batch",)
 
 
 def counted(run, kernels):
@@ -2345,8 +2433,9 @@ def _status_name(code):
 
 def phase_het(torch, dev, card):
     """`solve_qcp_het_batch` over the committed conic_mini (.mat) and
-    cblib_mini (.cbf) suites, each as one padded batch and through the
-    per-instance pool: every lane against its recorded optimum (a .mat
+    cblib_mini (.cbf) suites as one padded batch, conic_mini also through
+    the per-instance pool (HET_CBF_ROUTES): every lane against its
+    recorded optimum (a .mat
     without one held to `sedumi_certificate`, a .cbf without one to its
     .mat twin's objective)."""
     import glob
@@ -2408,6 +2497,8 @@ def phase_het(torch, dev, card):
                 rels.append(het_check(label, sol.status_name, sol.pobj,
                                       mat_stars[k]))
         summary(f"{label} with a recorded optimum", rels)
+        if route not in HET_CBF_ROUTES:
+            continue
         sec, res = wall_s(lambda: solve_qcp_het_batch(cbf_probs, route=route,
                                                       **kw))
         label = f"het batch cblib_mini (12 .cbf) route={route}"
@@ -2542,6 +2633,7 @@ STREAM_KW = dict(B=16, seg_chunks=32, qres_period=64, eps=1e-6)
 POOL_COUNT = 8
 POOL_WORKERS = (1, 4)
 PDHG_EPS = 1e-6
+PDHG_FILE_STEP = 2            # every other suite file (cut from every one)
 PDHG_BATCH_KW = dict(eps=1e-6, precision="mixed")
 # differentiation: the gradient of pobj w.r.t. b against y and a central
 # finite difference (step FD_STEP) on FD_COORDS coordinates of b; the
@@ -2714,14 +2806,14 @@ def phase_pool(torch, dev, card):
 
 
 def phase_pdhg(torch, dev, card):
-    """Restarted PDHG on the card: every netlib_mini .mps through
-    `solve_mps(method="pdhg")` against HiGHS on its presolved form (as
-    phase 7 holds it), every cblib_mini .cbf through `solve_qcp_pdhg`
-    against optima.json (a file without one against the ADMM solve of
-    its .cbf, phase 7's certified route), and a B=16 smoke batch through
-    `solve_lp_pdhg_batch(precision="mixed")` against HiGHS; each Solved
-    within 1e-5 relative.  Returns the batch's (stacks, state, wall) for
-    phase 10."""
+    """Restarted PDHG on the card: every PDHG_FILE_STEP-th netlib_mini .mps
+    through `solve_mps(method="pdhg")` against HiGHS on its presolved form
+    (as phase 7 holds it), every PDHG_FILE_STEP-th cblib_mini .cbf
+    through `solve_qcp_pdhg` against optima.json (a file without one
+    against the ADMM solve of its .cbf, phase 7's certified route), and
+    a B=16 smoke batch through
+    `solve_lp_pdhg_batch(precision="mixed")` against HiGHS (`pdhg_batch`);
+    each Solved within 1e-5 relative."""
     import glob
     import time
 
@@ -2730,7 +2822,6 @@ def phase_pdhg(torch, dev, card):
     from abip_tpu_torch import solve_qcp_pdhg
     from abip_tpu_torch.io.cbf import read_cbf, solve_cbf
     from abip_tpu_torch.io.presolve import solve_mps
-    from abip_tpu_torch.pdhg import solve_lp_pdhg_batch
     from abip_tpu_torch.utils.timing import wall_s
 
     def base(p):
@@ -2746,7 +2837,8 @@ def phase_pdhg(torch, dev, card):
                                  f"{rel:.3e}")
 
     t0 = time.perf_counter()
-    for p in sorted(glob.glob(os.path.join(SUITES, "netlib_mini", "*.mps"))):
+    mps = sorted(glob.glob(os.path.join(SUITES, "netlib_mini", "*.mps")))
+    for p in mps[::PDHG_FILE_STEP]:
         sec, (sol, std) = wall_s(lambda: solve_mps(p, method="pdhg",
                                                    eps=PDHG_EPS))
         ref = linprog(std.c, A_eq=std.A, b_eq=std.b, bounds=(0, None),
@@ -2757,7 +2849,8 @@ def phase_pdhg(torch, dev, card):
     with open(os.path.join(SUITES, "cblib_mini", "optima.json")) as f:
         optima = json.load(f)
     t0 = time.perf_counter()
-    for p in sorted(glob.glob(os.path.join(SUITES, "cblib_mini", "*.cbf"))):
+    cbfs = sorted(glob.glob(os.path.join(SUITES, "cblib_mini", "*.cbf")))
+    for p in cbfs[::PDHG_FILE_STEP]:
         emb = read_cbf(p)
         sec, sol = wall_s(lambda: solve_qcp_pdhg(emb.A, emb.b, emb.c,
                                                  emb.cones, eps=PDHG_EPS))
@@ -2766,6 +2859,18 @@ def phase_pdhg(torch, dev, card):
             star = solve_cbf(p, eps=FRONT_EPS)[2]
         check(f"{base(p)}.cbf", sol, emb.objective(sol.pobj), star, sec)
     cbf_s = time.perf_counter() - t0
+    pdhg_batch(torch, dev, card)
+    print(f"PDHG suites [{card}]: {len(mps[::PDHG_FILE_STEP])} .mps in "
+          f"{mps_s:.1f} s, {len(cbfs[::PDHG_FILE_STEP])} .cbf in "
+          f"{cbf_s:.1f} s")
+
+
+def pdhg_batch(torch, dev, card):
+    """A B=16 smoke batch through `solve_lp_pdhg_batch(precision="mixed")`
+    against HiGHS; returns (stacks, state, wall)."""
+    from abip_tpu_torch.pdhg import solve_lp_pdhg_batch
+    from abip_tpu_torch.utils.timing import wall_s
+
     data, stacks = smoke_batch(9300)
     sec, st = wall_s(lambda: solve_lp_pdhg_batch(*stacks, **PDHG_BATCH_KW))
     status = st.status.cpu().numpy()
@@ -2777,8 +2882,6 @@ def phase_pdhg(torch, dev, card):
           f"iterations {k.tolist()} ({int(k.max())} lockstep, "
           f"{int(k.sum()) / sec:.1f} aggregate it/s), vs HiGHS max relative "
           f"gap {worst:.3e} (limit 1e-5)")
-    print(f"PDHG suites [{card}]: 12 .mps in {mps_s:.1f} s, 12 .cbf in "
-          f"{cbf_s:.1f} s")
     return stacks, st, sec
 
 
@@ -3142,7 +3245,7 @@ def phase_multi_card(torch, dev, card, pdhg_batch):
 # itself (`python -m abip_tpu_torch.tools.fuzz_conic --batched --engine
 # sprint2 --per-class 18`; PERF.md).
 FUZZ_PER_CLASS = 18
-FUZZ_LANE_CAP = 2000
+FUZZ_LANE_CAP = 1000          # cut from 2000
 FUZZ_R05 = os.path.join(ROOT, "benchmarks", "results",
                         "r05_conic_fuzz_ladder.jsonl")
 # the host driver and PDHG routes of fuzz_conic on the classes with free
@@ -3155,12 +3258,15 @@ FUZZ_SCIPY_PER_CLASS = 5
 # fuzz_conic batches (free and zero blocks; dim 21, m 7)
 FUZZ_PARITY_CLASSES = ("zero_mixed", "mixed")
 MPS_SUITES = ("mittelmann_mini", "mip17_mini")
+# the suites solved dense as well as sparse (cut from both suites)
+MPS_DENSE_SUITES = ("mip17_mini",)
 EXAMPLES = os.path.join(ROOT, "abip_tpu_torch", "examples")
-# the examples and the fuzz_scipy CLI run in processes of their own beside
-# the rest of phase 11, this many at a time, each within BESIDE_LIMIT_S:
-# their walls, three at a time on an H100, sum to 360-400 s (PERF.md),
-# which the smoke's limit does not hold one after another
-BESIDE_WORKERS = 3
+# PARTS, the examples and the fuzz_scipy CLI run in processes of their own
+# beside phases 7-11, this many at a time, each within BESIDE_LIMIT_S:
+# their walls sum to 650-800 s on an H100 (PERF.md), which the smoke's
+# limit does not hold one after another; each process beside slows the
+# main process's host-issued loops (the card time-slices their contexts)
+BESIDE_WORKERS = 2
 BESIDE_LIMIT_S = 600
 
 
@@ -3263,14 +3369,14 @@ def phase_fuzz_host(torch, dev):
 
 
 def phase_mps_suites(torch, dev, dense=False):
-    """Every file of mittelmann_mini and mip17_mini through `solve_mps`
-    on the card (`mps_files_vs_highs`): dense=False holds K5 to its plain
-    version on each A and A' that packs BCSR and counts its launches.
-    Returns K5's launches."""
+    """Every file of MPS_SUITES (dense=False) or of MPS_DENSE_SUITES
+    (dense=True) through `solve_mps` on the card (`mps_files_vs_highs`):
+    dense=False holds K5 to its plain version on each A and A' that packs
+    BCSR and counts its launches.  Returns K5's launches."""
     import glob
 
     k5 = 0
-    for suite in MPS_SUITES:
+    for suite in MPS_DENSE_SUITES if dense else MPS_SUITES:
         paths = sorted(glob.glob(os.path.join(SUITES, suite, "*.mps*")))
         k5 += mps_files_vs_highs(torch, dev, paths, suite, dense)
     if not dense and k5 <= 0:
@@ -3278,10 +3384,50 @@ def phase_mps_suites(torch, dev, dense=False):
     return k5
 
 
+def part_multi_card(torch, dev, card):
+    """Phase 10 in a process of its own: phase 9's PDHG batch solved again
+    (`pdhg_batch`), then `phase_multi_card` against it."""
+    return {"mesh_launches": phase_multi_card(
+        torch, dev, card, pdhg_batch(torch, dev, card))}
+
+
+def part_suites(torch, dev, card):
+    """Phase 11's suites in a process of its own: `phase_mps_suites`
+    sparse, then dense."""
+    k5 = phase_mps_suites(torch, dev)
+    phase_mps_suites(torch, dev, True)
+    return {"suite_launches": k5}
+
+
+# paths that run in processes of their own beside phases 7-11
+PARTS = {"multi-card": part_multi_card, "suites": part_suites}
+
+
+def run_part(name):
+    """`python3 chip_smoke.py --part NAME`: PARTS[NAME] on card 0, its
+    kernels loaded from the build of the smoke that started it.  Prints
+    its lines, its wall, and last `PART <its result as JSON>`."""
+    import time
+
+    import torch
+
+    from abip_tpu_torch.ops.build import load_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    load_all(SOURCES)
+    t0 = time.perf_counter()
+    out = PARTS[name](torch, torch.device("cuda", 0), card)
+    print(f"part {name}: {time.perf_counter() - t0:.1f} s")
+    print("PART " + json.dumps(out))
+    return 0
+
+
 def beside_commands():
-    """(label, argv) of phase 11's runs beside the main process, the
-    longest first: the eight examples and `tools.fuzz_scipy` at
-    FUZZ_SCIPY_PER_CLASS."""
+    """(label, argv) of the runs beside the main process from phase 7 on,
+    the longest first: PARTS, the eight examples and `tools.fuzz_scipy`
+    at FUZZ_SCIPY_PER_CLASS."""
     import glob
 
     paths = sorted(glob.glob(os.path.join(EXAMPLES, "*.py")))
@@ -3291,7 +3437,9 @@ def beside_commands():
     examples = [(f"example {os.path.basename(p)}", [sys.executable, p])
                 for p in sorted(paths, key=lambda p: os.path.basename(p)
                                 not in longest)]
-    return examples[:2] + [
+    parts = [(f"part {name}", [sys.executable, os.path.join(
+        ROOT, "chip_smoke.py"), "--part", name]) for name in PARTS]
+    return parts + examples[:2] + [
         ("fuzz_scipy", [sys.executable, "-m",
                         "abip_tpu_torch.tools.fuzz_scipy", "--per-class",
                         str(FUZZ_SCIPY_PER_CLASS)])] + examples[2:]
@@ -3341,15 +3489,27 @@ def running_beside(commands):
 
 
 def phase_beside(runs, card):
-    """Wait for each run of `running_beside`; print its last lines (and
-    fuzz_scipy's verdicts per class) and raise unless every run exited 0
-    and fuzz_scipy's summary counts every LP and no mismatch."""
-    failed = []
+    """Wait for each run of `running_beside`; print a part's lines, every
+    other run's last lines (and fuzz_scipy's verdicts per class), and
+    raise unless every run exited 0, every part printed its result and
+    fuzz_scipy's summary counts every LP and no mismatch.  Returns
+    {part name: its result}."""
+    failed, parts = [], {}
     for label, future in runs:
         rc, text, sec = future.result()
         lines = [ln for ln in text.splitlines() if ln.strip()]
-        print(f"{label} rc {rc} in {sec:.1f} s [{card}]: "
-              f"{' | '.join(lines[-3:])}")
+        if label.startswith("part "):
+            print(f"{label} rc {rc} in {sec:.1f} s [{card}]:")
+            for ln in lines:
+                if ln.startswith("PART "):
+                    parts[label[5:]] = json.loads(ln[5:])
+                else:
+                    print(ln)
+            if label[5:] not in parts:
+                failed.append(label)
+        else:
+            print(f"{label} rc {rc} in {sec:.1f} s [{card}]: "
+                  f"{' | '.join(lines[-3:])}")
         if label == "fuzz_scipy":
             recs = [json.loads(ln) for ln in lines
                     if ln.startswith('{"class"')]
@@ -3368,13 +3528,15 @@ def phase_beside(runs, card):
             failed.append(label)
     if failed:
         raise AssertionError(f"runs beside failed: {sorted(set(failed))}")
+    return parts
 
 
 HOST_LP = dict(m=1000, n_rand=9000, density=0.1)
-HOST_SEEDS = (11, 12, 13)
+HOST_SEEDS = (11,)            # cut from (11, 12, 13) to hold the wall
+PROFILE_SEED = 12             # the host LP instance of the profile
 HOST_CG = dict(m=200, n_rand=1800, density=0.1)
 HOST_EPS = 1e-6
-PROFILE_ADMM = 600
+PROFILE_ADMM = 150            # cut from 600
 # K5 against its plain version and scipy: f64 within 1e-12 of |A| |x| per
 # row (both sum the same products in other orders); f32 within 1e-5 of it.
 SPMV_TOL = {"f64": 1e-12, "f32": 1e-5}
@@ -3561,52 +3723,59 @@ def solve_host(torch, A, b, c, **kw):
     return sec, sol, ws, bcsr_matvec_cuda.launches
 
 
-def phase_host_lp(torch, dev):
-    """The host LP driver at full width: `solve_lp`'s workspace on a CSR A
-    of the smoke shape, three fresh seeds, each against scipy's HiGHS
-    (18-25 s a run on the card's host, so each seed's runs in a worker
-    process of its own while the card solves).  Returns the first
-    solve's K5 launches."""
+@contextlib.contextmanager
+def host_highs():
+    """Yields {seed: future of `host_lp_highs(seed)`} over HOST_SEEDS, each
+    run in a worker process of its own (18-31 s a run on the card's host),
+    started when the smoke starts so that they finish while the kernels
+    build and the card solves."""
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
-    first = None
     with ProcessPoolExecutor(len(HOST_SEEDS), mp_context=multiprocessing
                              .get_context("spawn")) as pool:
-        refs = {seed: pool.submit(host_lp_highs, seed) for seed in HOST_SEEDS}
-        for seed in HOST_SEEDS:
-            A, b, c = host_lp(seed)
-            sec, sol, ws, launches = solve_host(torch, A, b, c)
-            layout = ws.A_op.layout
-            print(f"host LP seed {seed} m=1000 n=10000 nnz={A.nnz}: "
-                  f"{sol.status_name}, IPM {sol.ipm_iters}, ADMM "
-                  f"{sol.admm_iters}, wall {sec:.3f} s (setup "
-                  f"{sol.setup_time:.3f} s, solve {sol.solve_time:.3f} s), "
-                  f"{sol.admm_iters / sol.solve_time:.1f} ADMM it/s, layout "
-                  f"{layout}, linsys {ws.linsys_kind}, K5 launches "
-                  f"{launches} ({launches / max(1, sol.admm_iters):.2f} per "
-                  "ADMM iteration)")
-            if layout != "bcsr" or ws.linsys_kind != "dense":
-                raise AssertionError(f"host LP: layout {layout}, linsys "
-                                     f"{ws.linsys_kind}; expected bcsr, "
-                                     "dense")
-            if sol.status_name != "Solved" or launches <= 0:
-                raise AssertionError(f"host LP seed {seed}: "
-                                     f"{sol.status_name}, K5 launched "
-                                     f"{launches}x")
-            if not (np.isfinite(sol.x).all() and np.isfinite(sol.pobj)):
-                raise AssertionError(f"host LP seed {seed}: non-finite "
-                                     "solution")
-            fun, hs = refs[seed].result()
-            _HIGHS_RUNS[highs_key(A, b, c)] = fun
-            rel = abs(sol.pobj - fun) / max(1.0, abs(fun))
-            print(f"host LP seed {seed} vs scipy HiGHS ({hs:.1f} s in a "
-                  f"worker process): pobj {sol.pobj:.10g} vs {fun:.10g}, "
-                  f"relative gap {rel:.3e} (limit 1e-5)")
-            if rel > 1e-5:
-                raise AssertionError(f"host LP seed {seed}: objective off")
-            if first is None:
-                first = launches
+        yield {seed: pool.submit(host_lp_highs, seed) for seed in HOST_SEEDS}
+
+
+def phase_host_lp(torch, dev, refs):
+    """The host LP driver at full width: `solve_lp`'s workspace on a CSR A
+    of the smoke shape, HOST_SEEDS fresh seeds, each against scipy's
+    HiGHS (`refs`, from `host_highs`).  Returns the first solve's K5
+    launches."""
+    first = None
+    for seed in HOST_SEEDS:
+        A, b, c = host_lp(seed)
+        sec, sol, ws, launches = solve_host(torch, A, b, c)
+        layout = ws.A_op.layout
+        print(f"host LP seed {seed} m=1000 n=10000 nnz={A.nnz}: "
+              f"{sol.status_name}, IPM {sol.ipm_iters}, ADMM "
+              f"{sol.admm_iters}, wall {sec:.3f} s (setup "
+              f"{sol.setup_time:.3f} s, solve {sol.solve_time:.3f} s), "
+              f"{sol.admm_iters / sol.solve_time:.1f} ADMM it/s, layout "
+              f"{layout}, linsys {ws.linsys_kind}, K5 launches "
+              f"{launches} ({launches / max(1, sol.admm_iters):.2f} per "
+              "ADMM iteration)")
+        if layout != "bcsr" or ws.linsys_kind != "dense":
+            raise AssertionError(f"host LP: layout {layout}, linsys "
+                                 f"{ws.linsys_kind}; expected bcsr, "
+                                 "dense")
+        if sol.status_name != "Solved" or launches <= 0:
+            raise AssertionError(f"host LP seed {seed}: "
+                                 f"{sol.status_name}, K5 launched "
+                                 f"{launches}x")
+        if not (np.isfinite(sol.x).all() and np.isfinite(sol.pobj)):
+            raise AssertionError(f"host LP seed {seed}: non-finite "
+                                 "solution")
+        fun, hs = refs[seed].result()
+        _HIGHS_RUNS[highs_key(A, b, c)] = fun
+        rel = abs(sol.pobj - fun) / max(1.0, abs(fun))
+        print(f"host LP seed {seed} vs scipy HiGHS ({hs:.1f} s in a "
+              f"worker process): pobj {sol.pobj:.10g} vs {fun:.10g}, "
+              f"relative gap {rel:.3e} (limit 1e-5)")
+        if rel > 1e-5:
+            raise AssertionError(f"host LP seed {seed}: objective off")
+        if first is None:
+            first = launches
     return first
 
 
@@ -3695,7 +3864,7 @@ def phase_host_profile(torch, dev):
     ~45 events of every iteration)."""
     from abip_tpu_torch import LPWorkspace, Settings
 
-    A, b, c = host_lp(HOST_SEEDS[1])
+    A, b, c = host_lp(PROFILE_SEED)
     ws = LPWorkspace(A, b, c, Settings(eps=HOST_EPS,
                                        max_admm_iters=PROFILE_ADMM))
     profile_solve(torch, ws.solve,
@@ -3772,29 +3941,59 @@ print("AB " + json.dumps({"K2": k2, "K4": k4}))
 """
 
 
-def ab_parent(parent):
-    """K2 (one phase-1 launch) and K4 (one T=512 chunk) at dim-1020 B=16,
-    three times five (three) launches each, in this checkout and in
-    `parent`, each in a process of its own: this, parent, this."""
+# K8 at 32,000 (queued) and 2^24 (events over 20 launches) elements, f32
+# and f64, by the tree's own wrapper
+AB_K8_SNIPPET = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+from abip_tpu_torch.ops.prox import barrier_step_cuda
+from abip_tpu_torch.utils.timing import cuda_ms, queued_ms
+dev = torch.device("cuda", 0)
+out = {}
+for kind, dt in (("f32", torch.float32), ("f64", torch.float64)):
+    for n in (32_000, 2 ** 24):
+        g = torch.Generator(device=dev).manual_seed(n)
+        x = [torch.randn(n, dtype=dt, device=dev, generator=g)
+             for _ in range(3)]
+        step = lambda: barrier_step_cuda(*x, 1e-4, 1.8)
+        def twenty():
+            for _ in range(20):
+                step()
+        out[f"{kind} n={n}"] = [
+            queued_ms(step) if n == 32_000 else cuda_ms(twenty, iters=3) / 20
+            for _ in range(3)]
+print("AB " + json.dumps(out))
+"""
+AB_SNIPPETS = {"K2K4": AB_SNIPPET, "K8": AB_K8_SNIPPET}
+
+
+def ab_parent(parent, which="K2K4"):
+    """`which` in this checkout and in `parent`, each in a process of its
+    own, in turns: this, parent, this.  "K2K4": K2 (one phase-1 launch)
+    and K4 (one T=512 chunk) at dim-1020 B=16, three times five (three)
+    launches each; "K8": `AB_K8_SNIPPET`, three times each.  Prints the
+    milliseconds."""
     card = card_line()
     for tree in (ROOT, os.path.abspath(parent), ROOT):
-        proc = subprocess.run([sys.executable, "-c", AB_SNIPPET], cwd=tree,
-                              capture_output=True, text=True, check=False)
+        proc = subprocess.run([sys.executable, "-c", AB_SNIPPETS[which]],
+                              cwd=tree, capture_output=True, text=True,
+                              check=False)
         line = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
         if proc.returncode or not line:
             print(proc.stdout[-2000:], proc.stderr[-4000:], file=sys.stderr)
             raise AssertionError(f"A/B run in {tree} failed")
         times = json.loads(line[0][3:])
-        which = "parent" if tree != ROOT else "change"
-        print(f"A/B {which} ({tree}) [{card}]: K2 ms "
-              f"{[round(t, 3) for t in times['K2']]}, K4 ms "
-              f"{[round(t, 3) for t in times['K4']]}")
+        which_tree = "parent" if tree != ROOT else "change"
+        print(f"A/B {which_tree} ({tree}) [{card}]: " + ", ".join(
+            f"{k} ms {[round(t, 5) for t in v]}" for k, v in times.items()))
     return 0
 
 
 def main():
     import time
 
+    t_main = time.perf_counter()
     # cuBLAS picks its kernels per workspace; a fixed configuration keeps
     # the thread pool's concurrent streams on the same ones (phase 9)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -3806,7 +4005,9 @@ def main():
         return 2
     sys.path.insert(0, ROOT)
     if sys.argv[1:2] == ["--ab"]:
-        return ab_parent(sys.argv[2])
+        return ab_parent(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--part"]:
+        return run_part(sys.argv[2])
     from abip_tpu_torch.ops.build import load_all
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3823,16 +4024,18 @@ def main():
         print(f"phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    t0 = time.perf_counter()
-    built = load_all(SOURCES)
-    print(f"build: {len(SOURCES)} sources side by side in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for name, lib in built.items():
-        print(f"build {name}.cu: {lib.build_seconds:.1f} s [{card}] "
-              f"{' | '.join(ptxas_summary(lib.log))}")
+    with host_highs() as refs:
+        t0 = time.perf_counter()
+        built = load_all(SOURCES)
+        print(f"build: {len(SOURCES)} sources side by side in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, lib in built.items():
+            print(f"build {name}.cu: {lib.build_seconds:.1f} s [{card}] "
+                  f"{' | '.join(ptxas_summary(lib.log))}")
 
-    k5_err = phase("K5 parity", phase_spmv_parity, torch, dev)
-    k5_launches = phase("host LP main path", phase_host_lp, torch, dev)
+        k5_err = phase("K5 parity", phase_spmv_parity, torch, dev)
+        k5_launches = phase("host LP main path", phase_host_lp, torch, dev,
+                            refs)
     phase("host LP cg", phase_host_cg, torch, dev)
     k5 = phase("K5 timing", phase_spmv_timing, torch, dev, card)
     phase("host LP profile", phase_host_profile, torch, dev)
@@ -3870,60 +4073,58 @@ def main():
     phase("shape repair", phase_repair, torch, dev)
 
     t7 = time.perf_counter()
-    phase("front door conic", phase_front_conic, torch, dev)
+    # first the loop that reads the card at every CG iteration, which a
+    # process beside slows most (1.8x)
     phase("front door CG", phase_front_cg, torch, dev)
-    phase("front door workspace", phase_front_workspace, torch, dev)
-    mps_solves = {}
-    k5_mps = phase("front door files", phase_front_files, torch, dev,
-                   mps_solves)
-    phase("front door profile", phase_front_profile, torch, dev)
-    print(f"phase 7 (front door): {time.perf_counter() - t7:.1f} s")
-
-    t8 = time.perf_counter()
-    rest = phase("compaction", phase_compaction, torch, dev, card)
-    k3_round_err = phase("K3 at a compaction round", phase_round_parity,
-                         torch, dev)
-    rest["K2"]["sprint2 endgame=steps B=16"] = phase(
-        "steps engine", phase_steps, torch, dev, card)
-    phase("solve_qcp_device and host_polish", phase_device_polish, torch, dev,
-          card)
-    phase("heterogeneous batches", phase_het, torch, dev, card)
-    phase("LASSO and SVM", phase_ml, torch, dev, card)
-    print(f"phase 8 (the batched conic rest): {time.perf_counter() - t8:.1f} s")
-
-    t9 = time.perf_counter()
-    phase("PageRank families", phase_pagerank, torch, dev, card)
-    phase("stream against fixed batches", phase_stream, torch, dev, card)
-    k1_pool = phase("thread pool", phase_pool, torch, dev, card)
-    pdhg_batch = phase("PDHG", phase_pdhg, torch, dev, card)
-    phase("crossover", phase_crossover, torch, dev, card, mps_solves)
-    phase("differentiation", phase_grad, torch, dev, card)
-    print(f"phase 9 (the rest of the single-card port): "
-          f"{time.perf_counter() - t9:.1f} s")
-
-    t10 = time.perf_counter()
-    k1_mesh = phase("multi-card layer", phase_multi_card, torch, dev, card,
-                    pdhg_batch)
-    print(f"phase 10 (the multi-card layer): "
-          f"{time.perf_counter() - t10:.1f} s")
-
-    t11 = time.perf_counter()
+    # from here on, PARTS (phase 10 and phase 11's suites), the examples
+    # and fuzz_scipy run in processes of their own beside this one
     with running_beside(beside_commands()) as beside:
+        phase("front door conic", phase_front_conic, torch, dev)
+        phase("front door workspace", phase_front_workspace, torch, dev)
+        mps_solves = {}
+        k5_mps = phase("front door files", phase_front_files, torch, dev,
+                       mps_solves)
+        phase("front door profile", phase_front_profile, torch, dev)
+        print(f"phase 7 (front door): {time.perf_counter() - t7:.1f} s")
+
+        t8 = time.perf_counter()
+        rest = phase("compaction", phase_compaction, torch, dev, card)
+        k3_round_err = phase("K3 at a compaction round", phase_round_parity,
+                             torch, dev)
+        rest["K2"]["sprint2 endgame=steps B=16"] = phase(
+            "steps engine", phase_steps, torch, dev, card)
+        phase("solve_qcp_device and host_polish", phase_device_polish, torch,
+              dev, card)
+        phase("heterogeneous batches", phase_het, torch, dev, card)
+        phase("LASSO and SVM", phase_ml, torch, dev, card)
+        print(f"phase 8 (the batched conic rest): "
+              f"{time.perf_counter() - t8:.1f} s")
+
+        t9 = time.perf_counter()
+        phase("PageRank families", phase_pagerank, torch, dev, card)
+        phase("stream against fixed batches", phase_stream, torch, dev, card)
+        k1_pool = phase("thread pool", phase_pool, torch, dev, card)
+        phase("PDHG", phase_pdhg, torch, dev, card)
+        phase("crossover", phase_crossover, torch, dev, card, mps_solves)
+        phase("differentiation", phase_grad, torch, dev, card)
+        print(f"phase 9 (the rest of the single-card port): "
+              f"{time.perf_counter() - t9:.1f} s")
+
+        t11 = time.perf_counter()
         k2_fuzz_err, k3_fuzz_err = phase(
             "K2/K3 parity on fuzz_conic batches", phase_fuzz_parity, torch,
             dev)
         k2_fuzz, k3_fuzz = phase("fuzz_conic sprint2", phase_fuzz_conic,
                                  torch, dev, card)
         phase("fuzz_conic host and PDHG", phase_fuzz_host, torch, dev)
-        k5_suites = phase("mittelmann_mini and mip17_mini sparse",
-                          phase_mps_suites, torch, dev)
-        phase("mittelmann_mini and mip17_mini dense", phase_mps_suites,
-              torch, dev, True)
-        phase("examples and fuzz_scipy (beside)", phase_beside, beside,
-              card)
-    print(f"phase 11 (validators and examples): "
+        parts = phase("phase 10, the suites, examples and fuzz_scipy "
+                      "(beside)", phase_beside, beside, card)
+    k1_mesh = parts["multi-card"]["mesh_launches"]
+    k5_suites = parts["suites"]["suite_launches"]
+    print(f"phase 11 (validators and examples, from its start): "
           f"{time.perf_counter() - t11:.1f} s")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    print(f"total wall: {time.perf_counter() - t_main:.1f} s [{card}]")
 
     def entry(name, source, replaces, launches, err, times, library=None,
               **more):
@@ -3960,7 +4161,12 @@ def main():
         entry("sprint_cluster_kernel<plain>", "admm_sprint.cu",
               "abip_tpu/ops/admm_pallas.py:113", k7_launches, k7_err, k7),
         entry("barrier_step_kernel", "barrier_step.cu",
-              "abip_tpu/ops/prox_pallas.py:42", k8_launches, k8_err, k8)]}))
+              "abip_tpu/ops/prox_pallas.py:42", k8_launches, k8_err,
+              k8[0]["f32"][2 ** 24], empty_launch_ms=k8[1],
+              sizes={f"{kind} n={n}": dict(zip(
+                  ("ms", "plain_ms", "bound_ms", "bound_by"), t))
+                  for kind, by_n in k8[0].items()
+                  for n, t in by_n.items()})]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -532,11 +532,13 @@ def test_conic_sprint_kernel_matches_plain_on_card(cuda_device, label, case):
 
 @pytest.mark.cuda
 def test_barrier_step_kernel_matches_plain_on_card(cuda_device):
-    """K8 in f32 and f64 on a 32,000-vector and a ragged one, and the
-    prox at the reference guard's fault points within 1e-6 of the f64
-    prox (`chip_smoke.phase_barrier_step`)."""
+    """K8 in f32 and f64 on vectors of 32,000, 1,237 and 2^24 elements,
+    on views at offsets of 1-3 elements and with u_t alone at an offset,
+    and the prox at the reference guard's fault points within 1e-6 of the
+    f64 prox (`chip_smoke.phase_barrier_step`)."""
     _, launches = chip_smoke.phase_barrier_step(torch, cuda_device)
-    assert launches == 4
+    assert launches == 2 * (len(chip_smoke.STEP_SIZES)
+                            + len(chip_smoke.STEP_OFFSETS) + 1)
 
 
 @pytest.mark.cuda

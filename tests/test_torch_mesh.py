@@ -22,7 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from tests.torch_gloo import cpu_mesh, run_group, run_tasks  # noqa: E402
+from tests.torch_gloo import Groups, cpu_mesh, run_tasks  # noqa: E402
 from tests.torch_gloo import result as rank_result  # noqa: E402
 
 WORLDS = (2, 4)
@@ -93,9 +93,9 @@ def _fields(res):
             for k, v in res._asdict().items()}
 
 
-def _tasks(rank, world, d):
-    """Every task on this rank; a task that raises returns its traceback
-    (and so fails only its own test)."""
+def _tasks(rank, world, d, part):
+    """Every task of `part` on this rank; a task that raises returns its
+    traceback (and so fails only its own test)."""
     from abip_tpu_torch.cones import ConeSpec
     from abip_tpu_torch.parallel import solve_lp_batch, solve_lp_suite
     from abip_tpu_torch.pdhg import solve_lp_pdhg_batch, solve_qcp_pdhg_batch
@@ -132,22 +132,13 @@ def _tasks(rank, world, d):
             *d["pdhg_lp"], mesh=cpu_mesh(world, "rows"), **CPU)),
     )
     return run_tasks({k: f for k, f in tasks.items()
-                      if world == 2 or k not in ONLY_TWO})
+                      if world == 2 or k not in ONLY_TWO}, part)
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """`ranks(world)`: (data, every rank's task results) of one group."""
-    runs = {}
-
-    def get(world):
-        if world not in runs:
-            d = _data(world)
-            runs[world] = d, run_group(_tasks, world,
-                                       tmp_path_factory.mktemp("gloo"), d)
-        return runs[world]
-
-    return get
+    return Groups(_tasks, _data, tmp_path_factory)
 
 
 def result(ranks, world, name):

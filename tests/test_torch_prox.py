@@ -79,3 +79,74 @@ def test_cuda_wrapper_refuses_cpu_tensors():
     _, t = _inputs(8, torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         prox.barrier_step_cuda(*t, 0.1, 1.8)
+
+
+# -- the kernel's launch plan (`prox.step_plan`) ------------------------------
+
+SMS, RESIDENT = 132, 8      # an H100's SMs; blocks of 256 threads an SM holds
+BASE = 0x7F00_0000_0000     # a 16-byte aligned address
+
+
+def _covered(plan, n):
+    """Every element's count of visits by the head, body and tail."""
+    seen = np.zeros(n, dtype=int)
+    seen[:plan.head] += 1
+    seen[plan.head:plan.head + plan.body] += 1
+    seen[plan.head + plan.body:] += 1
+    return seen, plan.head + plan.body + plan.tail
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1_237, 32_000, 2 ** 24])
+@pytest.mark.parametrize("itemsize,offset", [(4, 0), (4, 1), (4, 2), (4, 3),
+                                             (8, 0), (8, 1)],
+                         ids=["f32+0", "f32+1", "f32+2", "f32+3", "f64+0",
+                              "f64+1"])
+def test_step_plan_covers_each_element_once(n, itemsize, offset):
+    """Head, body and tail cover n elements exactly once; the body starts
+    16 bytes aligned in all five operands and holds whole vectors; the
+    head and the tail are shorter than one vector; the grid is at most one
+    wave of resident blocks and gives every vector and scalar a thread."""
+    addr = BASE + offset * itemsize
+    plan = prox.step_plan(n, itemsize, [addr] * 5, SMS, RESIDENT)
+    seen, total = _covered(plan, n)
+    assert total == n and (seen == 1).all()
+    assert plan.body % plan.vec == 0
+    if plan.vec > 1:
+        assert plan.vec * itemsize == prox.VEC_BYTES
+        assert (addr + plan.head * itemsize) % prox.VEC_BYTES == 0
+        assert plan.head < plan.vec and plan.tail < plan.vec
+    else:
+        assert (plan.head, plan.body, plan.tail) == (0, n, 0)
+        # only where no whole vector fits after the head
+        assert n < 2 * prox.VEC_BYTES // itemsize
+    assert plan.blocks <= SMS * RESIDENT
+    work = max(plan.body // plan.vec, plan.head, plan.tail)
+    assert (plan.blocks == 0) == (n == 0)
+    assert plan.blocks == min(-(-work // prox.THREADS), SMS * RESIDENT)
+    if n == 2 ** 24:
+        assert plan.vec == prox.VEC_BYTES // itemsize
+        assert plan.blocks == SMS * RESIDENT
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_step_plan_scalar_where_operands_disagree(itemsize):
+    """Operands at different addresses modulo 16 bytes (an input view at
+    an offset beside an aligned one) take the scalar form of the kernel,
+    every element in the body."""
+    n = 1_237
+    addrs = [BASE, BASE + itemsize, BASE, BASE, BASE]
+    plan = prox.step_plan(n, itemsize, addrs, SMS, RESIDENT)
+    assert plan == prox.StepPlan(1, 0, n, 0, -(-n // prox.THREADS))
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 0),
+                                          (torch.float32, 1),
+                                          (torch.float32, 3),
+                                          (torch.float64, 1)])
+def test_outputs_share_the_inputs_alignment(dtype, offset):
+    """The wrapper's outputs start where a view at `offset` does modulo
+    16 bytes, so a view keeps the vector body."""
+    x = torch.zeros(64, dtype=dtype)[offset:offset + 37]
+    out = prox._output_like(x)
+    assert out.shape == x.shape and out.dtype == dtype and out.is_contiguous()
+    assert (out.data_ptr() - x.data_ptr()) % prox.VEC_BYTES == 0

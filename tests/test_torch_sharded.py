@@ -18,9 +18,11 @@ CG counts (on rho_y I + AA' of a 32 x 200 A: on the worse-conditioned
 `LPWorkspace` against the reference's, equal status, IPM and ADMM counts
 and pobj to 1e-9 relative.  Every rank must return the same bits.
 
-Each group of ranks runs every task once (`ranks`, module-scoped);
-each task's data is made here with numpy from a seed and sent to the
-ranks, whose code imports only torch, numpy and the port.
+Each task runs once per group size (`ranks`, module-scoped): the conic
+and the CG whole solves, each with its unsharded run, in a group of
+their own, every other task in a third; each task's data is made here
+with numpy from a seed and sent to the ranks, whose code imports only
+torch, numpy and the port.
 """
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from tests.torch_gloo import cpu_mesh, run_group, run_tasks  # noqa: E402
+from tests.torch_gloo import Groups, cpu_mesh, run_tasks  # noqa: E402
 from tests.torch_gloo import result as rank_result  # noqa: E402
 
 WORLDS = (2, 4)
@@ -80,14 +82,19 @@ ONLY_TWO = ("kkt_bad_rows", "shard_default", "conic_requires_cg", "sparse",
             "bad_linsys", "dense_of_cg", "device_type")
 
 
+# the two longest whole sharded solves, each with its unsharded run, in a
+# group of its own (`tests/torch_gloo.Groups`)
+PARTS = (("conic_base", "conic_shard"), ("cg_base", "cg_shard"))
+
+
 def _sol(s):
     return dict(status=s.status_name, pobj=s.pobj, ipm=s.ipm_iters,
                 admm=s.admm_iters, x=s.x)
 
 
-def _tasks(rank, world, d):
-    """Every task on this rank; a task that raises returns its traceback
-    (and so fails only its own test)."""
+def _tasks(rank, world, d, part):
+    """Every task of `part` on this rank; a task that raises returns its
+    traceback (and so fails only its own test)."""
     import dataclasses
 
     import scipy.sparse as sp
@@ -188,22 +195,13 @@ def _tasks(rank, world, d):
             A, b, c, Settings(eps=1e-4), **CPU).shard(cuda_mesh())),
     )
     return run_tasks({k: f for k, f in tasks.items()
-                      if world == 2 or k not in ONLY_TWO})
+                      if world == 2 or k not in ONLY_TWO}, part)
 
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """`ranks(world)`: (data, every rank's task results) of one group."""
-    runs = {}
-
-    def get(world):
-        if world not in runs:
-            d = _data(world)
-            runs[world] = d, run_group(_tasks, world,
-                                       tmp_path_factory.mktemp("gloo"), d)
-        return runs[world]
-
-    return get
+    return Groups(_tasks, _data, tmp_path_factory, parts=PARTS)
 
 
 def result(ranks, world, name):
