@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from . import hsd
+from .utils.profiling import host_read
 
 _TINY = 1e-300
 
@@ -83,7 +84,9 @@ def bb_update_beta(u, v, mu, h, g, g_th, rho_y, alpha, solve_fn, m, n,
         v_tail = (mu / beta_prev) / torch.clamp(u1[m:], min=_TINY)
         v_prev = torch.where(moved, torch.cat([v1[:m], v_tail]), v1)
         u_prev = u1
-        if bool(converged):
+        with host_read():
+            stop = bool(converged)
+        if stop:
             break
     # guard degenerate outcomes: keep beta positive and finite
     bad = ~torch.isfinite(beta) | (beta <= 0)

@@ -22,10 +22,18 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import host_read
+
 CG_BEST_TOL = 1e-9
 CG_MIN_TOL = 1e-1
 # `pcg_lanes`: CG iterations between two host reads of "any lane running"
 _CG_SYNC = 4
+
+
+def _above(x, tol) -> bool:
+    """x >= tol, read on the host."""
+    with host_read():
+        return bool(x >= tol)
 
 
 def pcg(G, M, b, x0, tol, max_iters):
@@ -39,7 +47,7 @@ def pcg(G, M, b, x0, tol, max_iters):
     p = z
     ipzr = (z * r).sum()
     i = 0
-    while i < max_iters and bool(torch.linalg.vector_norm(r) >= tol):
+    while i < max_iters and _above(torch.linalg.vector_norm(r), tol):
         Gp = G(p)
         alpha = ipzr / (p * Gp).sum()
         x = x + alpha * p

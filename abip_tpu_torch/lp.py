@@ -37,6 +37,7 @@ from .linsys import make_solver  # noqa: F401  (public seam, as abip_tpu.lp)
 from .problem import LinearOperator
 from .scaling import ScalingData, equilibrate, equilibrate_sparse, normalize_bc
 from .settings import Settings, Status
+from .utils.profiling import annotate, host_read
 
 EPS_TOL = hsd.EPS_TOL
 INDETERMINATE_TOL = 1e-9
@@ -172,7 +173,8 @@ def _bb_beta_k(ops: LPOperands, u, v, mu, *, stgs: Settings):
 def _running(s: InnerState, thresh) -> bool:
     """The inner loop's device-side stop test, `qres >= gamma*mu` and
     `status == 0`: the one host read of an iteration."""
-    return bool((s.qres >= thresh) & (s.status == 0))
+    with host_read():
+        return bool((s.qres >= thresh) & (s.status == 0))
 
 
 def _run_inner_k(ops: LPOperands, state: InnerState, mu, beta, gamma,
@@ -195,61 +197,71 @@ def _run_inner_k(ops: LPOperands, state: InnerState, mu, beta, gamma,
     s = state
     go = _running(s, thresh)
     while go and s.j < inner_stopper and s.k < max_iters:
-        u_prev = s.u
-        u_t, its = hsd.project_lin_sys(s.u, s.v, ops.h, ops.g, ops.g_th,
-                                       stgs.rho_y, solve_fn, s.k, m, n)
-        if stgs.half_update:
-            u, v = hsd.admm_update_half(s.u, s.v, u_t, lam, m)
-        else:
-            u, v = hsd.admm_update(s.u, s.v, u_prev, u_t, lam, stgs.alpha, m)
+        with annotate("lp.admm"):
+            u_prev = s.u
+            with annotate("lp.project"):
+                u_t, its = hsd.project_lin_sys(s.u, s.v, ops.h, ops.g,
+                                               ops.g_th, stgs.rho_y, solve_fn,
+                                               s.k, m, n)
+            with annotate("lp.update"):
+                if stgs.half_update:
+                    u, v = hsd.admm_update_half(s.u, s.v, u_t, lam, m)
+                else:
+                    u, v = hsd.admm_update(s.u, s.v, u_prev, u_t, lam,
+                                           stgs.alpha, m)
 
-        # restart (`abip.c:587-630`): accumulate, then average every
-        # restart_fre iterations once past restart_thresh.
-        u_avg = s.u_avg + u
-        v_avg = s.v_avg + v
-        if s.k >= stgs.restart_thresh and (s.j + 1) % fre == 0:
-            u, v = u_avg / fre, v_avg / fre
-            u_avg, v_avg = torch.zeros_like(u_avg), torch.zeros_like(v_avg)
+                # restart (`abip.c:587-630`): accumulate, then average
+                # every restart_fre iterations once past restart_thresh.
+                u_avg = s.u_avg + u
+                v_avg = s.v_avg + v
+                if s.k >= stgs.restart_thresh and (s.j + 1) % fre == 0:
+                    u, v = u_avg / fre, v_avg / fre
+                    u_avg = torch.zeros_like(u_avg)
+                    v_avg = torch.zeros_like(v_avg)
 
-        # cumulative average candidate (`abip.c:635-659`)
-        u_sum = s.u_sum + u
-        v_sum = s.v_sum + v
-        dom = float(s.j + 1)
-        u_avgcon = u_sum / dom
-        v_avgcon = v_sum / dom
+                # cumulative average candidate (`abip.c:635-659`)
+                u_sum = s.u_sum + u
+                v_sum = s.v_sum + v
+                dom = float(s.j + 1)
+                u_avgcon = u_sum / dom
+                v_avgcon = v_sum / dom
 
-        # inner criterion (`abip.c:1951-2051`): every 10th iteration also
-        # evaluate the averaged iterate and adopt it if better.  With
-        # qres_period > 1 it runs only every P-th (and 10th) iteration and
-        # stays stale in between.
-        tenth = (s.j + 1) % 10 == 0
-        fresh = P == 1 or (s.j + 1) % P == 0 or tenth
-        if fresh:
-            qres = q_norm_resd(u, v)
-            avg_crit = torch.zeros_like(s.avg_criterion)
-            if tenth:
-                q_avg = q_norm_resd(u_avgcon, v_avgcon)
-                avg_crit = q_avg < qres
-                qres = torch.where(avg_crit, q_avg, qres)
-        else:
-            qres, avg_crit = s.qres, s.avg_criterion
+            # inner criterion (`abip.c:1951-2051`): every 10th iteration
+            # also evaluate the averaged iterate and adopt it if better.
+            # With qres_period > 1 it runs only every P-th (and 10th)
+            # iteration and stays stale in between.
+            tenth = (s.j + 1) % 10 == 0
+            fresh = P == 1 or (s.j + 1) % P == 0 or tenth
+            if fresh:
+                with annotate("lp.qres"):
+                    qres = q_norm_resd(u, v)
+                    avg_crit = torch.zeros_like(s.avg_criterion)
+                    if tenth:
+                        q_avg = q_norm_resd(u_avgcon, v_avgcon)
+                        avg_crit = q_avg < qres
+                        qres = torch.where(avg_crit, q_avg, qres)
+            else:
+                qres, avg_crit = s.qres, s.avg_criterion
 
-        # convergence check (CONVERGED_INTERVAL=1) when final_check is on
-        if final_check:
-            res = _calc_residuals_k(ops, torch.where(avg_crit, u_avgcon, u),
-                                    torch.where(avg_crit, v_avgcon, v))
-            status = hsd.lp_converged_code(res, stgs.eps, stgs.pfeasopt,
-                                           ipm_i > 0 and s.k > 0)
-        else:
-            res, status = s.res, torch.zeros_like(s.status)
+            # convergence check (CONVERGED_INTERVAL=1) when final_check
+            # is on
+            if final_check:
+                res = _calc_residuals_k(
+                    ops, torch.where(avg_crit, u_avgcon, u),
+                    torch.where(avg_crit, v_avgcon, v))
+                status = hsd.lp_converged_code(res, stgs.eps, stgs.pfeasopt,
+                                               ipm_i > 0 and s.k > 0)
+            else:
+                res, status = s.res, torch.zeros_like(s.status)
 
-        s = InnerState(
-            u=u, v=v, u_prev=u_prev, u_avg=u_avg, v_avg=v_avg,
-            u_sum=u_sum, v_sum=v_sum, u_avgcon=u_avgcon, v_avgcon=v_avgcon,
-            j=s.j + 1, k=s.k + 1, qres=qres, avg_criterion=avg_crit,
-            status=status, res=res, cg_iters=s.cg_iters + its)
-        if fresh or final_check:
-            go = _running(s, thresh)
+            s = InnerState(
+                u=u, v=v, u_prev=u_prev, u_avg=u_avg, v_avg=v_avg,
+                u_sum=u_sum, v_sum=v_sum, u_avgcon=u_avgcon,
+                v_avgcon=v_avgcon, j=s.j + 1, k=s.k + 1, qres=qres,
+                avg_criterion=avg_crit, status=status, res=res,
+                cg_iters=s.cg_iters + its)
+            if fresh or final_check:
+                go = _running(s, thresh)
     if stgs.half_update:
         # On a qres-triggered break only, lift strictly negative duals to
         # 1e-6 (`abip.c:2175-2185`); small positives and the y-block are
@@ -347,8 +359,15 @@ def _lp_dense_setup_shared(A, b, c, *, stgs):
 
 def _floats(r: Residuals) -> dict:
     """The residual record as host floats, in one device read."""
-    return dict(zip(Residuals._fields,
-                    torch.stack([x.reshape(()) for x in r]).tolist()))
+    with host_read():
+        return dict(zip(Residuals._fields,
+                        torch.stack([x.reshape(()) for x in r]).tolist()))
+
+
+def _avg(state: InnerState) -> bool:
+    """Whether the averaged iterate is the candidate: a device read."""
+    with host_read():
+        return bool(state.avg_criterion)
 
 
 class LPWorkspace:
@@ -361,6 +380,10 @@ class LPWorkspace:
 
     def __init__(self, A, b, c, settings: Settings = Settings(),
                  device=None):
+        with annotate("lp.setup"):
+            self._setup(A, b, c, settings, device)
+
+    def _setup(self, A, b, c, settings, device):
         import scipy.sparse as sps
 
         settings = settings.resolved()
@@ -391,16 +414,17 @@ class LPWorkspace:
                 f"c must have shape ({n},) to match A; got {tuple(c.shape)}")
         # finite-data validation (`validate`, `abip.c:1646-1734`): NaN/inf
         # data otherwise propagates into a misleading Unbounded exit
-        if not (bool(np.all(np.isfinite(A.data))) if is_sparse
-                else bool(torch.isfinite(A).all())):
-            raise ValueError("A contains NaN or infinite entries")
-        if not bool(torch.isfinite(b).all()):
-            raise ValueError("b contains NaN or infinite entries")
-        if not bool(torch.isfinite(c).all()):
-            raise ValueError("c contains NaN or infinite entries")
+        with host_read():
+            finite = [bool(np.all(np.isfinite(A.data))) if is_sparse
+                      else bool(torch.isfinite(A).all()),
+                      bool(torch.isfinite(b).all()),
+                      bool(torch.isfinite(c).all())]
+            nnz = int(A.nnz) if is_sparse else int((A != 0).sum())
+        for name, ok in zip("Abc", finite):
+            if not ok:
+                raise ValueError(f"{name} contains NaN or infinite entries")
         self.m, self.n = m, n
         self.l = m + n + 1
-        nnz = int(A.nnz) if is_sparse else int((A != 0).sum())
         self.sp = nnz / (m * n)
 
         with _ieee_f32():
@@ -581,9 +605,10 @@ class LPWorkspace:
         m, n = self.m, self.n
         if x.shape != (n,) or y.shape != (m,) or s.shape != (n,):
             raise ValueError("warm start must be (x (n,), y (m,), s (n,))")
-        D = self.scal.D.cpu().numpy()
-        E = self.scal.E.cpu().numpy()
-        sc_b, sc_c = float(self.sc_b), float(self.sc_c)
+        with host_read():
+            D = self.scal.D.cpu().numpy()
+            E = self.scal.E.cpu().numpy()
+            sc_b, sc_c = float(self.sc_b), float(self.sc_c)
         x_s = x * (E * sc_b)
         y_s = y * (D * sc_c)
         s_s = s / (E / (sc_c * self.stgs.scale))
@@ -614,7 +639,7 @@ class LPWorkspace:
         checkpoint_path/checkpoint_every: save state every k outer
         iterations (an .npz round-trip of the iterate).
         """
-        with _ieee_f32():
+        with _ieee_f32(), annotate("lp.ipm"):
             return self._solve(warm, resume, checkpoint_path,
                                checkpoint_every)
 
@@ -628,9 +653,7 @@ class LPWorkspace:
         m, l = self.m, self.l
         t0 = time.perf_counter()
         log = IterationLog(enabled=stgs.verbose)
-        timers = PhaseTimers(sync=torch.cuda.synchronize
-                             if self.device.type == "cuda" else None)
-        self._timers = timers
+        timers = PhaseTimers.of_solve(stgs.verbose, self.device, "lp")
         if stgs.verbose:
             print(solver_banner("LP", m, self.n, self.A_op.nnz,
                                 self.linsys_kind))
@@ -686,7 +709,7 @@ class LPWorkspace:
             old_handler = None
 
         def active(st):
-            if bool(st.avg_criterion):
+            if _avg(st):
                 return st.u_avgcon, st.v_avgcon
             return st.u, st.v
 
@@ -721,7 +744,8 @@ class LPWorkspace:
                         self._tensor(gamma), inner_stopper, final_check, i,
                         max_admm, stgs=stgs)
                 admm_total = state.k
-                inner_status = int(state.status)
+                with host_read():
+                    inner_status = int(state.status)
                 if inner_status != 0:
                     status = inner_status
                     res_np = _floats(state.res)
@@ -751,17 +775,22 @@ class LPWorkspace:
                     break
 
                 # mu update (`abip.c:2251-2277`)
-                mu, sigma, gamma, final_check, double_check, dynamic_sigma = (
-                    schedules.update_mu(
+                with host_read():
+                    u_np, v_np = u_sel.cpu().numpy(), v_sel.cpu().numpy()
+                with annotate("lp.mu_update"):
+                    (mu, sigma, gamma, final_check, double_check,
+                     dynamic_sigma) = schedules.update_mu(
                         mu, sigma, gamma, res_np, stgs, self.sp,
                         final_check, double_check, dynamic_sigma,
-                        u=u_sel.cpu().numpy(), v=v_sel.cpu().numpy(), m=m))
+                        u=u_np, v=v_np, m=m)
 
                 if (checkpoint_path and checkpoint_every
                         and (i + 1) % checkpoint_every == 0):
                     u_c, v_c = active(state)
+                    with host_read():
+                        u_c, v_c = u_c.cpu().numpy(), v_c.cpu().numpy()
                     SolverCheckpoint(
-                        u=u_c.cpu().numpy(), v=v_c.cpu().numpy(), mu=mu,
+                        u=u_c, v=v_c, mu=mu,
                         beta=beta, sigma=sigma, gamma=gamma,
                         admm_iters=admm_total, ipm_iters=i + 1,
                         final_check=final_check).save(checkpoint_path)
@@ -776,8 +805,10 @@ class LPWorkspace:
                     with timers.phase("adaptive_bb"):
                         state = self._reinit_scale(state, np.sqrt(sigma))
                         u_a, v_a = active(state)
-                        beta = float(_bb_beta_k(self.ops, u_a, v_a,
-                                                self._tensor(mu), stgs=stgs))
+                        beta_t = _bb_beta_k(self.ops, u_a, v_a,
+                                            self._tensor(mu), stgs=stgs)
+                        with host_read():
+                            beta = float(beta_t)
                         state = self._reinit_scale(state,
                                                    np.sqrt(1.0 / sigma))
         finally:
@@ -787,8 +818,9 @@ class LPWorkspace:
             status = Status.SIGINT
 
         solve_time = time.perf_counter() - t0
-        sol = self._extract_solution(state, res_np, status, ipm_iter,
-                                     admm_total, solve_time)
+        with annotate("lp.extract"):
+            sol = self._extract_solution(state, res_np, status, ipm_iter,
+                                         admm_total, solve_time)
         log.footer(sol.status_name, {
             "pobj": sol.pobj, "dobj": sol.dobj,
             "res_pri": sol.res_pri, "res_dual": sol.res_dual,
@@ -802,7 +834,7 @@ class LPWorkspace:
     def _reinit(self, state: InnerState, sigma):
         """`reinitialize_vars(w, 0)` on the active iterate."""
         sig = self._tensor(sigma)
-        if bool(state.avg_criterion):
+        if _avg(state):
             u, v = hsd.reinit_rebalance(state.u_avgcon, state.v_avgcon, sig,
                                         self.m)
             return state._replace(u_avgcon=u, v_avgcon=v)
@@ -819,7 +851,7 @@ class LPWorkspace:
             return (torch.cat([u[:m], u[m:] * f]),
                     torch.cat([v[:m], v[m:] * f]))
 
-        if bool(state.avg_criterion):
+        if _avg(state):
             u, v = scl(state.u_avgcon, state.v_avgcon)
             return state._replace(u_avgcon=u, v_avgcon=v)
         u, v = scl(state.u, state.v)
@@ -831,10 +863,11 @@ class LPWorkspace:
         (`normalize.c:133-158`)."""
         m, n, l = self.m, self.n, self.l
         stgs = self.stgs
-        avg = bool(state.avg_criterion)
+        avg = _avg(state)
         u_t = state.u_avgcon if avg else state.u
         v_t = state.v_avgcon if avg else state.v
-        u, v = u_t.cpu().numpy(), v_t.cpu().numpy()
+        with host_read():
+            u, v = u_t.cpu().numpy(), v_t.cpu().numpy()
         if res_np is None:
             res_np = _floats(self._calc_residuals(u_t, v_t))
 
@@ -873,9 +906,10 @@ class LPWorkspace:
             y[:], s[:] = np.nan, np.nan
 
         if stgs.normalize:
-            D = self.scal.D.cpu().numpy()
-            E = self.scal.E.cpu().numpy()
-            sc_b, sc_c = float(self.sc_b), float(self.sc_c)
+            with host_read():
+                D = self.scal.D.cpu().numpy()
+                E = self.scal.E.cpu().numpy()
+                sc_b, sc_c = float(self.sc_b), float(self.sc_c)
             x = x / (E * sc_b)
             y = y / (D * sc_c)
             s = s * E / (sc_c * stgs.scale)
@@ -907,4 +941,7 @@ def solve_lp(A, b, c, settings: Settings = Settings(), device=None,
     `device` says otherwise."""
     if overrides:
         settings = dataclasses.replace(settings, **overrides)
-    return LPWorkspace(A, b, c, settings, device=device).solve()
+    with annotate("lp.solve") as span:
+        sol = LPWorkspace(A, b, c, settings, device=device).solve()
+        span.note(admm_iters=sol.admm_iters)
+        return sol

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from ..device import smem_optin
+from ..utils.profiling import annotate
 
 f32 = torch.float32
 f64 = torch.float64
@@ -585,27 +586,31 @@ def run_delta_chunk(A64, solve64, h, g, g_th, rho_y, lam, alpha, thresh,
     B, m, n = A64.shape
     if A64.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no delta chunk for device {A64.device}")
-    anc = delta_anchor(A64, solve64, h, g, g_th, rho_y, lam, alpha, thresh,
-                       u, v, u_sum, v_sum, sj, qres, A32=A32, Ninv32=Ninv32)
-    t_max = torch.full((B,), T, dtype=torch.int32, device=A64.device)
-    if active is not None:
-        t_max = torch.where(active, t_max, 0).to(torch.int32)
-    chunk = delta_chunk_cuda if A64.is_cuda else _delta_compute
-    dy, dx, dvx, dsy, dsx, dsvx, row = chunk(anc, t_max, probe)
-    row = row.to(f64)
-    dtau, dkap, dstau, dskap, q = (row[:, k] for k in range(5))
-    t_done = row[:, 5].to(torch.int32)
-    avg_crit = row[:, 6] > 0.5
-    # absolute f64 state: exact anchor frame + deltas
-    kf = t_done.to(f64)[:, None]
-    u_new = torch.cat([u[:, :m] + dy.to(f64), u[:, m:m + n] + dx.to(f64),
-                       (u[:, m + n] + dtau)[:, None]], dim=1)
-    v_new = torch.cat([v[:, :m], v[:, m:m + n] + dvx.to(f64),
-                       (v[:, m + n] + dkap)[:, None]], dim=1)
-    u_sum_new = u_sum + kf * u + torch.cat(
-        [dsy.to(f64), dsx.to(f64), dstau[:, None]], dim=1)
-    v_sum_new = v_sum + kf * v + torch.cat(
-        [torch.zeros_like(u[:, :m]), dsvx.to(f64), dskap[:, None]], dim=1)
+    with annotate("lp_batch.anchor"):
+        anc = delta_anchor(A64, solve64, h, g, g_th, rho_y, lam, alpha,
+                           thresh, u, v, u_sum, v_sum, sj, qres, A32=A32,
+                           Ninv32=Ninv32)
+    with annotate("lp_batch.k1"):
+        t_max = torch.full((B,), T, dtype=torch.int32, device=A64.device)
+        if active is not None:
+            t_max = torch.where(active, t_max, 0).to(torch.int32)
+        chunk = delta_chunk_cuda if A64.is_cuda else _delta_compute
+        dy, dx, dvx, dsy, dsx, dsvx, row = chunk(anc, t_max, probe)
+    with annotate("lp_batch.absorb"):
+        row = row.to(f64)
+        dtau, dkap, dstau, dskap, q = (row[:, k] for k in range(5))
+        t_done = row[:, 5].to(torch.int32)
+        avg_crit = row[:, 6] > 0.5
+        # absolute f64 state: exact anchor frame + deltas
+        kf = t_done.to(f64)[:, None]
+        u_new = torch.cat([u[:, :m] + dy.to(f64), u[:, m:m + n] + dx.to(f64),
+                           (u[:, m + n] + dtau)[:, None]], dim=1)
+        v_new = torch.cat([v[:, :m], v[:, m:m + n] + dvx.to(f64),
+                           (v[:, m + n] + dkap)[:, None]], dim=1)
+        u_sum_new = u_sum + kf * u + torch.cat(
+            [dsy.to(f64), dsx.to(f64), dstau[:, None]], dim=1)
+        v_sum_new = v_sum + kf * v + torch.cat(
+            [torch.zeros_like(u[:, :m]), dsvx.to(f64), dskap[:, None]], dim=1)
     return DeltaResult(u=u_new, v=v_new, u_sum=u_sum_new, v_sum=v_sum_new,
                        t_done=t_done, qres=q, avg_crit=avg_crit)
 

@@ -55,6 +55,7 @@ from ..ops.admm_sprint import fused_admm_sprint, fused_admm_sprint_stop
 from ..scaling import equilibrate, normalize_bc
 from ..device import resolve_device
 from ..settings import Settings
+from ..utils.profiling import annotate, host_read
 
 f32 = torch.float32
 f64 = torch.float64
@@ -314,6 +315,12 @@ def _check_options(precision, engine, cadence, qres_period, avg_period,
         raise ValueError(f"cadence must be 'cond' or 'chunk'; got {cadence!r}")
 
 
+def _any(mask) -> bool:
+    """Whether any lane of `mask` is set: a read of the device."""
+    with host_read():
+        return bool(mask.any())
+
+
 def _lanes_i32(x, B, dev):
     return torch.as_tensor(x, device=dev).to(i32).expand(B).clone()
 
@@ -324,6 +331,13 @@ def device_solve_lp(As, bs, cs, **opts) -> DeviceSolveResult:
     stack, one lane each (the reference's `vmap` of it).  One instance
     runs as a lane of its own and its fields come back without the lane
     axis.  The options are `_device_solve_lanes`'s."""
+    with annotate("lp_batch.solve") as span:
+        r = _device_solve(As, bs, cs, **opts)
+        span.note(admm_iters=r.admm_iters)
+        return r
+
+
+def _device_solve(As, bs, cs, **opts) -> DeviceSolveResult:
     if As.dim() == 2:
         r = _device_solve_lanes(As[None], bs[None], cs[None], **opts)
         return DeviceSolveResult(*(None if f is None else f[0] for f in r))
@@ -367,13 +381,14 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
     # mixed mode caps each stage's trips per anchor; f64 needs no anchor
     stage_cap = anchor_period if mixed else max_admm
 
-    if delta:
-        S = setup_delta(A, b, c, rho_y=rho_y, normalize=normalize,
-                        scale=scale, ruiz_iter=ruiz_iter)
-    else:
-        S = setup_steps(A, b, c, rho_y=rho_y, normalize=normalize,
-                        scale=scale, ruiz_iter=ruiz_iter, sprint=sprint,
-                        solver=solver)
+    with annotate("lp_batch.setup"):
+        if delta:
+            S = setup_delta(A, b, c, rho_y=rho_y, normalize=normalize,
+                            scale=scale, ruiz_iter=ruiz_iter)
+        else:
+            S = setup_steps(A, b, c, rho_y=rho_y, normalize=normalize,
+                            scale=scale, ruiz_iter=ruiz_iter, sprint=sprint,
+                            solver=solver)
 
     def mv64(x):
         return _mv(S.A_s, x)
@@ -476,16 +491,19 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
         s = stage_start(carry)
         while True:
             act = alive & (s.qres >= thresh) & (s.status == 0) & (s.k < kcap)
-            if not bool(act.any()):
+            if not _any(act):
                 break
-            res = run_delta_chunk(
-                S.A_s, S.solve64, S.h, S.g, S.g_th, rho_y, mu, alpha,
-                thresh, s.u, s.v, s.u_sum, s.v_sum, carry.sj + s.j, s.qres,
-                T=qres_period, probe=probe, A32=S.A32, Ninv32=S.Ninv32,
-                active=act)
-            s = _select(act, checked(
-                carry, s, res.u, res.v, res.u_sum, res.v_sum, res.t_done,
-                res.t_done, res.qres, res.avg_crit), s)
+            with annotate("lp_batch.chunk"):
+                res = run_delta_chunk(
+                    S.A_s, S.solve64, S.h, S.g, S.g_th, rho_y, mu, alpha,
+                    thresh, s.u, s.v, s.u_sum, s.v_sum, carry.sj + s.j,
+                    s.qres, T=qres_period, probe=probe, A32=S.A32,
+                    Ninv32=S.Ninv32, active=act)
+                with annotate("lp_batch.check"):
+                    new = checked(carry, s, res.u, res.v, res.u_sum,
+                                  res.v_sum, res.t_done, res.t_done, res.qres,
+                                  res.avg_crit)
+                s = _select(act, new, s)
         return s
 
     def inner(carry: _Outer, alive):
@@ -506,8 +524,7 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
         # read per stage tells which kernels the stage needs
         if sprint and not (chunked and mu_stop >= sprint_mu_switch):
             sp = mu > sprint_mu_switch
-            use_sp = bool((alive & sp).any())
-            use_st = bool((alive & ~sp).any())
+            use_sp, use_st = _any(alive & sp), _any(alive & ~sp)
         else:
             sp = torch.full((B,), sprint, dtype=torch.bool, device=dev)
             use_sp, use_st = sprint, not sprint
@@ -526,7 +543,7 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
                 u, v, us, vs, dj, dk, q, ac = t
                 mc = (act & (q >= thresh) & (dk < qres_period)
                       & (s.j + dj < stage_cap) & (s.k + dk < kcap))
-                if not bool(mc.any()):
+                if not _any(mc):
                     break
                 for _ in range(probe):
                     u, v = step(u, v)
@@ -557,7 +574,7 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
         if chunked:
             while True:
                 act = cond_active(s)
-                if not bool(act.any()):
+                if not _any(act):
                     break
                 if use_sp and use_st:
                     new = _select(sp, sprint_chunk(s, act & sp),
@@ -576,7 +593,7 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
         jp = 0
         while True:
             act = cond_active(s)
-            if jp % _COND_SYNC == 0 and not bool(act.any()):
+            if jp % _COND_SYNC == 0 and not _any(act):
                 break
             jp += 1
             if use_st:
@@ -621,7 +638,16 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
         return s
 
     def outer_body(carry: _Outer, alive) -> _Outer:
-        s = (inner_delta if delta else inner)(carry, alive)
+        """One IPM iteration of the `alive` lanes; the others keep
+        `carry`."""
+        with annotate("lp_batch.stage"):
+            s = (inner_delta if delta else inner)(carry, alive)
+        with annotate("lp_batch.outer"):
+            return _select(alive, outer_step(carry, s), carry)
+
+    def outer_step(carry: _Outer, s: _Inner) -> _Outer:
+        """The IPM update after stage `s`: the pick, the residuals, the
+        mu rule and the reinit."""
         # adopt the averaged iterate when it is the better candidate
         # (`abip.c:2125-2129`)
         dom = torch.clamp(carry.sj + s.j, min=1).to(f64)
@@ -690,22 +716,23 @@ def _device_solve_lanes(As, bs, cs, *, eps=1e-6, max_ipm=200,
             # phase-boundary exit: stop (status 0, state returned) once
             # the barrier passes mu_stop, so another engine can continue
             alive = alive & (carry.mu >= mu_stop)
-        if not bool(alive.any()):
+        if not _any(alive):
             break
-        carry = _select(alive, outer_body(carry, alive), carry)
+        carry = outer_body(carry, alive)
 
     # -- extract + un-normalize (`get_solution`, `abip.c:1344-1414`) --------
-    r = carry.res
-    tau = torch.clamp(r.tau, min=hsd.EPS_TOL)[:, None]
-    return DeviceSolveResult(
-        x=carry.u[:, m:m + n] / tau / (S.E * S.sc_b[:, None]),
-        y=carry.u[:, :m] / tau / (S.D * S.sc_c[:, None]),
-        s=carry.v[:, m:m + n] / tau * S.E / (S.sc_c * scale)[:, None],
-        status=carry.status, ipm_iters=carry.i, admm_iters=carry.k,
-        res_pri=r.res_pri, res_dual=r.res_dual, rel_gap=r.rel_gap,
-        pobj=r.ct_x_by_tau / tau[:, 0], dobj=r.bt_y_by_tau / tau[:, 0],
-        u_raw=carry.u, v_raw=carry.v, mu=carry.mu,
-        u_sum_raw=carry.u_sum, v_sum_raw=carry.v_sum, sj=carry.sj)
+    with annotate("lp_batch.extract"):
+        r = carry.res
+        tau = torch.clamp(r.tau, min=hsd.EPS_TOL)[:, None]
+        return DeviceSolveResult(
+            x=carry.u[:, m:m + n] / tau / (S.E * S.sc_b[:, None]),
+            y=carry.u[:, :m] / tau / (S.D * S.sc_c[:, None]),
+            s=carry.v[:, m:m + n] / tau * S.E / (S.sc_c * scale)[:, None],
+            status=carry.status, ipm_iters=carry.i, admm_iters=carry.k,
+            res_pri=r.res_pri, res_dual=r.res_dual, rel_gap=r.rel_gap,
+            pobj=r.ct_x_by_tau / tau[:, 0], dobj=r.bt_y_by_tau / tau[:, 0],
+            u_raw=carry.u, v_raw=carry.v, mu=carry.mu,
+            u_sum_raw=carry.u_sum, v_sum_raw=carry.v_sum, sj=carry.sj)
 
 
 def _as_f64(x, device):
@@ -738,20 +765,25 @@ def solve_lp_batch(As, bs, cs, mesh=None, device=None,
     kw.setdefault("cadence", "chunk")
     tile = kw.pop("tile", 16)
     dev = resolve_device(device)
-    As, bs, cs = (_as_f64(x, dev) for x in (As, bs, cs))
-    if mesh is not None:
-        from .sharded import lanes_over_mesh
+    with annotate("lp_batch.solve") as span:
+        with annotate("lp_batch.upload"):
+            As, bs, cs = (_as_f64(x, dev) for x in (As, bs, cs))
+        if mesh is not None:
+            from .sharded import lanes_over_mesh
 
-        return lanes_over_mesh(
-            mesh, dev, (As, bs, cs),
-            lambda *share: _solve_whole(*share, whole=True, **kw))
-    B = As.shape[0]
-    if tile and B > tile and B % tile == 0:
-        outs = [solve_lp_batch(As[i:i + tile], bs[i:i + tile],
-                               cs[i:i + tile], tile=tile, device=dev, **kw)
-                for i in range(0, B, tile)]
-        return DeviceSolveResult(*[torch.cat(f) for f in zip(*outs)])
-    return _solve_whole(As, bs, cs, **kw)
+            out = lanes_over_mesh(
+                mesh, dev, (As, bs, cs),
+                lambda *share: _solve_whole(*share, whole=True, **kw))
+        elif tile and As.shape[0] > tile and As.shape[0] % tile == 0:
+            outs = [solve_lp_batch(As[i:i + tile], bs[i:i + tile],
+                                   cs[i:i + tile], tile=tile, device=dev,
+                                   **kw)
+                    for i in range(0, As.shape[0], tile)]
+            out = DeviceSolveResult(*[torch.cat(f) for f in zip(*outs)])
+        else:
+            out = _solve_whole(As, bs, cs, **kw)
+        span.note(admm_iters=out.admm_iters)
+        return out
 
 
 def _solve_whole(As, bs, cs, whole=False, **kw) -> DeviceSolveResult:
@@ -761,7 +793,7 @@ def _solve_whole(As, bs, cs, whole=False, **kw) -> DeviceSolveResult:
     if kw.get("engine") == "sprint2":
         return _solve_lp_batch_twophase(As, bs, cs, whole=whole, **kw)
     kw.pop("endgame", None)   # sprint2-only knob
-    return device_solve_lp(As, bs, cs, **kw)
+    return _device_solve(As, bs, cs, **kw)
 
 
 def _bucket(size):
@@ -803,38 +835,42 @@ def _solve_lp_batch_twophase(As, bs, cs, whole=False,
     r1 = solve_lp_batch(As, bs, cs, device=dev, tile=0 if whole else 16,
                         **kw1)
     done1 = r1.status != 0
-    if bool(done1.all()):
+    if not _any(~done1):           # every lane finished in phase 1
         return r1
     kw2 = dict(kw, engine="delta" if endgame == "delta" else "steps")
     max_admm = kw.get("max_admm", 200_000)
     if whole or As.shape[0] <= 32:
-        r2 = device_solve_lp(As, bs, cs, init_state=_resume_state(r1),
-                             k_cap=max_admm, **kw2)
+        r2 = _device_solve(As, bs, cs, init_state=_resume_state(r1),
+                           k_cap=max_admm, **kw2)
         return _select(done1, r1, r2)
 
     max_ipm = kw.get("max_ipm", 200)
     out = [f.clone() for f in r1]
     state = [t.clone() for t in _resume_state(r1)]
     _K, _I = 3, 4                                 # admm / ipm slots
-    active = np.flatnonzero(~done1.cpu().numpy())
+    with host_read():
+        active = np.flatnonzero(~done1.cpu().numpy())
     while active.size:
         nb = _bucket(active.size)
         # the bucket is padded with copies of active lanes
         idx = torch.as_tensor(active[np.arange(nb) % active.size],
                               device=dev)
         act = torch.as_tensor(active, device=dev)
-        prev_k = state[_K][act].cpu().numpy()
-        prev_i = state[_I][act].cpu().numpy()
+        with host_read():
+            prev_k = state[_K][act].cpu().numpy()
+            prev_i = state[_I][act].cpu().numpy()
         # one shared cap: every active lane runs to the same rung
         caps = min(int(prev_k.max()) + compact_period, max_admm)
-        r2 = device_solve_lp(As[idx], bs[idx], cs[idx],
-                             init_state=tuple(s[idx] for s in state),
-                             k_cap=caps, **kw2)
+        r2 = _device_solve(As[idx], bs[idx], cs[idx],
+                           init_state=tuple(s[idx] for s in state),
+                           k_cap=caps, **kw2)
         live = slice(0, active.size)               # non-duplicate rows
-        k2 = r2.admm_iters[live].cpu().numpy()
-        i2 = r2.ipm_iters[live].cpu().numpy()
+        with host_read():
+            k2 = r2.admm_iters[live].cpu().numpy()
+            i2 = r2.ipm_iters[live].cpu().numpy()
+            st2 = r2.status[live].cpu().numpy()
         # finished: converged, at the ADMM or IPM cap, or no progress
-        fin = ((r2.status[live].cpu().numpy() != 0) | (k2 >= max_admm)
+        fin = ((st2 != 0) | (k2 >= max_admm)
                | (i2 >= max_ipm) | ((k2 <= prev_k) & (i2 <= prev_i)))
         fin_t = torch.as_tensor(fin, device=dev)
         for f_out, f_new in zip(out, r2):

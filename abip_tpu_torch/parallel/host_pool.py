@@ -11,7 +11,8 @@ the solves can overlap on the device; a worker waits only for its own
 stream (a read such as `.item()` synchronizes its stream alone, while
 `torch.cuda.synchronize()` would stall every worker).  The first
 instance of each shape is solved serially first: it builds the kernels
-and warms the allocator before the threads race.
+and warms the allocator before the threads race.  A worker records its
+spans (`utils.profiling`) where the calling thread does.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import follow, tracing
 from .batched import DeviceSolveResult, device_solve_lp
 
 __all__ = ["pool_map", "solve_lp_pool"]
@@ -56,8 +58,13 @@ def solve_lp_pool(problems, *, workers: int | None = None, device=None,
 
     problems = [tuple(t(x) for x in p) for p in problems]
     local = threading.local()
+    traced = tracing()
 
     def solve(p):
+        with follow(traced):
+            return solve_one(p)
+
+    def solve_one(p):
         if dev.type != "cuda":
             return device_solve_lp(*p, **kw)
         stream = getattr(local, "stream", None)

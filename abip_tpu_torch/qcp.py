@@ -484,8 +484,7 @@ class ConicWorkspace:
         dtype, dev = self.dtype, self.device
         t0 = time.perf_counter()
         log = IterationLog(enabled=stgs.verbose)
-        timers = PhaseTimers(sync=torch.cuda.synchronize
-                             if dev.type == "cuda" else None)
+        timers = PhaseTimers.of_solve(stgs.verbose, dev, "qcp")
         if stgs.verbose:
             nnz = (int((self.A != 0).sum()) if self.A is not None
                    else self.A_op.nnz)

@@ -14,6 +14,8 @@ import time
 from collections import defaultdict
 from typing import Optional
 
+from .profiling import annotate
+
 
 class PhaseTimers:
     """Accumulating wall-clock timers keyed by phase name.
@@ -21,18 +23,32 @@ class PhaseTimers:
     Equivalent of the reference's lin/barrier/res/check/update timers
     (`source/abip.c:1083-1093`).  `sync` (e.g. `torch.cuda.synchronize`)
     runs at the end of every phase, so that a phase's time includes the
-    device work it queued."""
+    device work it queued.  Each phase is also the span
+    `<layer>.<phase>` (`profiling.annotate`)."""
 
-    def __init__(self, sync=None):
+    def __init__(self, sync=None, layer: str = ""):
         self.totals = defaultdict(float)
         self.counts = defaultdict(int)
         self.sync = sync
+        self.prefix = f"{layer}." if layer else ""
+
+    @classmethod
+    def of_solve(cls, verbose: bool, device, layer: str) -> "PhaseTimers":
+        """A solver's timers: their totals are printed in the verbose
+        footer alone, so only a verbose solve on a CUDA card waits for
+        the card at the end of every phase."""
+        import torch
+
+        return cls(sync=torch.cuda.synchronize
+                   if verbose and device.type == "cuda" else None,
+                   layer=layer)
 
     @contextlib.contextmanager
     def phase(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(self.prefix + name):
+                yield
         finally:
             if self.sync is not None:
                 self.sync()
