@@ -6,12 +6,16 @@ embedding.  Iterates: u = (y, x, tau), v = (0, s, kappa), length
 l = m + n + 1 (`abip.c:2076`, `include/abip.h:136-150` of the reference).
 
 The reference runs the inner ADMM loop as one jitted `lax.while_loop`.
-Here the loop runs on the host and issues each iteration's tensor ops to
-the device: the counters j and k are Python ints, so the restart,
-average and q-update cadences are host branches, and only the stop test
-(`qres >= gamma*mu` and, with `final_check`, `status == 0`) is read back
-from the device, once per iteration.  The iteration semantics are the
-reference's: the same j, k, cadences and stop.
+Here the host drives it.  On a CUDA card, on the direct path, the loop
+runs as blocks of 10 iterations, each captured once as a CUDA graph and
+replayed: every iteration of a block tests the stop (`qres >= gamma*mu`,
+`status == 0`, the stopper and the budget) on the device and leaves the
+state as it was once the test fails, and the host reads whether the
+loop goes on, with j and k, once a block.  Elsewhere (the CPU, PCG, a
+sharded workspace, a block in which a restart falls) the loop issues
+one iteration at a time and reads the stop test once an iteration.
+Both run one iteration function (`_admm_step`), so the two do the same
+arithmetic, with the reference's j, k, cadences and stop.
 
 A scipy sparse A is packed as the compact rows of its stored entries
 (the reference's BCSR layout) or as ELL rows
@@ -21,8 +25,11 @@ kernel K5 (`csrc/bcsr_spmv.cu`).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
 import time
+import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -170,106 +177,425 @@ def _bb_beta_k(ops: LPOperands, u, v, mu, *, stgs: Settings):
                           stgs.adaptive_lookback, stgs.eps_cor, stgs.eps_pen)
 
 
-def _running(s: InnerState, thresh) -> bool:
-    """The inner loop's device-side stop test, `qres >= gamma*mu` and
-    `status == 0`: the one host read of an iteration."""
+class _Iterate(NamedTuple):
+    """What one ADMM iteration reads and writes: the inner state with
+    its counters j and k as 0-d int64 tensors, all on the device."""
+
+    u: torch.Tensor
+    v: torch.Tensor
+    u_prev: torch.Tensor
+    u_avg: torch.Tensor
+    v_avg: torch.Tensor
+    u_sum: torch.Tensor
+    v_sum: torch.Tensor
+    u_avgcon: torch.Tensor
+    v_avgcon: torch.Tensor
+    j: torch.Tensor
+    k: torch.Tensor
+    qres: torch.Tensor
+    avg_criterion: torch.Tensor
+    status: torch.Tensor
+    res: Residuals
+
+
+class _Stage(NamedTuple):
+    """A stage's constants on the device: lam = mu/beta, the stop
+    threshold gamma*mu, the stopper and the iteration budget (int64),
+    and whether this is a later IPM iteration (bool)."""
+
+    lam: torch.Tensor
+    thresh: torch.Tensor
+    stopper: torch.Tensor
+    max_iters: torch.Tensor
+    ipm_pos: torch.Tensor
+
+
+def _means(u_sum, v_sum, count):
+    """(u_sum, v_sum) / count for a 0-d integer count on the device,
+    rounded as a division by the same count as a host number rounds on
+    that device: PyTorch divides a CUDA tensor by a host number as a
+    product with the number's reciprocal."""
+    d = count.to(u_sum.dtype)
+    if u_sum.is_cuda:
+        r = torch.reciprocal(d)
+        return u_sum * r, v_sum * r
+    return u_sum / d, v_sum / d
+
+
+def _admm_step(ops: LPOperands, it: _Iterate, st: _Stage, k_host, *,
+               stgs: Settings, tenth: bool, fresh: bool, restart: bool,
+               final_check: bool):
+    """One ADMM iteration of the hot loop (`abip.c:2131-2215`): the
+    projection, the update, the restart and cumulative averages, the
+    inner criterion and, with `final_check`, the convergence check.  The
+    cadences are the caller's static flags; `k_host` is the host's k,
+    read by PCG's tolerance alone.  Returns (iterate, PCG iterations)."""
+    m, n = _dims(ops)
+    u_prev = it.u
+    with annotate("lp.project"):
+        u_t, its = hsd.project_lin_sys(it.u, it.v, ops.h, ops.g, ops.g_th,
+                                       stgs.rho_y, _solve_fn(ops, stgs),
+                                       k_host, m, n)
+    with annotate("lp.update"):
+        if stgs.half_update:
+            u, v = hsd.admm_update_half(it.u, it.v, u_t, st.lam, m)
+        else:
+            u, v = hsd.admm_update(it.u, it.v, u_prev, u_t, st.lam,
+                                   stgs.alpha, m)
+
+        # restart (`abip.c:587-630`): accumulate, then average every
+        # restart_fre iterations once past restart_thresh.
+        u_avg = it.u_avg + u
+        v_avg = it.v_avg + v
+        if restart:
+            u, v = u_avg / stgs.restart_fre, v_avg / stgs.restart_fre
+            u_avg = torch.zeros_like(u_avg)
+            v_avg = torch.zeros_like(v_avg)
+
+        # cumulative average candidate (`abip.c:635-659`)
+        u_sum = it.u_sum + u
+        v_sum = it.v_sum + v
+        j = it.j + 1
+        u_avgcon, v_avgcon = _means(u_sum, v_sum, j)
+
+    # inner criterion (`abip.c:1951-2051`): every 10th iteration also
+    # evaluate the averaged iterate and adopt it if better.  With
+    # qres_period > 1 it runs only every P-th (and 10th) iteration and
+    # stays stale in between.
+    def q_norm_resd(u, v):
+        return hsd.q_norm_resd(u, v, lambda x: _ops_matvec(ops, x),
+                               lambda y: _ops_rmatvec(ops, y), ops.b, ops.c,
+                               m, n)
+
+    if fresh:
+        with annotate("lp.qres"):
+            qres = q_norm_resd(u, v)
+            avg_crit = torch.zeros_like(it.avg_criterion)
+            if tenth:
+                q_avg = q_norm_resd(u_avgcon, v_avgcon)
+                avg_crit = q_avg < qres
+                qres = torch.where(avg_crit, q_avg, qres)
+    else:
+        qres, avg_crit = it.qres, it.avg_criterion
+
+    # convergence check (CONVERGED_INTERVAL=1) when final_check is on
+    if final_check:
+        res = _calc_residuals_k(ops, torch.where(avg_crit, u_avgcon, u),
+                                torch.where(avg_crit, v_avgcon, v))
+        status = hsd.lp_converged_code(res, stgs.eps, stgs.pfeasopt,
+                                       st.ipm_pos & (it.k > 0))
+    else:
+        res, status = it.res, torch.zeros_like(it.status)
+    return _Iterate(u=u, v=v, u_prev=u_prev, u_avg=u_avg, v_avg=v_avg,
+                    u_sum=u_sum, v_sum=v_sum, u_avgcon=u_avgcon,
+                    v_avgcon=v_avgcon, j=j, k=it.k + 1, qres=qres,
+                    avg_criterion=avg_crit, status=status, res=res), its
+
+
+BLOCK = 10      # ADMM iterations of a block: the average check's cadence
+
+
+def _active(it: _Iterate, st: _Stage):
+    """The loop's stop test on the device: whether another iteration
+    runs."""
+    return ((it.qres >= st.thresh) & (it.status == 0)
+            & (it.j < st.stopper) & (it.k < st.max_iters))
+
+
+def _leaves(it: _Iterate):
+    return list(it[:-1]) + list(it.res)
+
+
+def _from_leaves(leaves) -> _Iterate:
+    return _Iterate(*leaves[:14], Residuals(*leaves[14:]))
+
+
+def _admm_block(ops: LPOperands, it: _Iterate, st: _Stage, *,
+                stgs: Settings, final_check: bool):
+    """BLOCK iterations of `_admm_step` from a j that is a multiple of
+    BLOCK, each applied only while `_active` holds: once the stop test
+    fails the iterate stays as it was, so the block ends where the loop
+    would have.  The tenth iteration's average check is the block's
+    last.  For qres_period 1 and no restart inside the block.  Returns
+    (iterate, whether the loop goes on).
+
+    The fields of one dtype and shape are selected together, as the
+    rows of one stack: one `where` a group, not one a field, so a
+    replay runs fewer kernels.  Only elementwise operations read a row,
+    so the rows give the values separate tensors would."""
+    leaves = _leaves(it)
+    groups = collections.defaultdict(list)
+    for i, x in enumerate(leaves):
+        groups[(x.dtype, tuple(x.shape))].append(i)
+    groups = list(groups.values())
+    stacks = [torch.stack([leaves[i] for i in g]) if len(g) > 1 else None
+              for g in groups]
+    for t in range(BLOCK):
+        go = _active(it, st)
+        new, _ = _admm_step(ops, it, st, None, stgs=stgs,
+                            tenth=t == BLOCK - 1, fresh=True, restart=False,
+                            final_check=final_check)
+        new = _leaves(new)
+        for n, g in enumerate(groups):
+            if stacks[n] is None:
+                leaves[g[0]] = torch.where(go, new[g[0]], leaves[g[0]])
+                continue
+            stacks[n] = torch.where(go, torch.stack([new[i] for i in g]),
+                                    stacks[n])
+            for r, i in enumerate(g):
+                leaves[i] = stacks[n][r]
+        it = _from_leaves(leaves)
+    return it, _active(it, st)
+
+
+def _restart_in_block(stgs: Settings, j: int, k: int) -> bool:
+    """Whether a restart average falls in the block that starts at
+    (j, k)."""
+    return any(k + t >= stgs.restart_thresh
+               and (j + t + 1) % stgs.restart_fre == 0 for t in range(BLOCK))
+
+
+def _on_card(ops: LPOperands) -> bool:
+    return ops.h.is_cuda
+
+
+def _operand_leaves(ops: LPOperands):
+    """[(name, tensor)] of every tensor an iteration reads from `ops`,
+    and the rest of the sparse layouts' fields, which fix the shapes."""
+    tensors, rest = [], []
+    for name in ("A", "chol", "h", "g", "g_th", "b", "c", "pr_scale",
+                 "dr_scale", "obj_scale", "nm_b", "nm_c"):
+        if getattr(ops, name) is not None:
+            tensors.append((name, getattr(ops, name)))
+    for name in ("bcsr", "bcsr_T", "ell", "ell_T"):
+        mat = getattr(ops, name)
+        if mat is None:
+            continue
+        for f in dataclasses.fields(mat):
+            x = getattr(mat, f.name)
+            if isinstance(x, torch.Tensor):
+                tensors.append((f"{name}.{f.name}", x))
+            else:
+                rest.append((f"{name}.{f.name}", x))
+    return tensors, rest
+
+
+def _with_operands(ops: LPOperands, tensors) -> LPOperands:
+    """`ops` with its tensors replaced by `tensors` ({name: tensor})."""
+    top = {k: t for k, t in tensors.items() if "." not in k}
+    for name in ("bcsr", "bcsr_T", "ell", "ell_T"):
+        mat = getattr(ops, name)
+        if mat is not None:
+            top[name] = dataclasses.replace(mat, **{
+                k.partition(".")[2]: t for k, t in tensors.items()
+                if k.partition(".")[0] == name})
+    return ops._replace(**top)
+
+
+class _BlockGraph:
+    """The masked block of one shape and variant, on static buffers: the
+    operands, the iterate, the stage's constants and the flag (whether
+    the loop goes on, j, k) that the host reads after a block.  On a
+    CUDA card the block is captured as a CUDA graph once, after one run
+    uncaptured, and replayed; elsewhere it runs uncaptured each time.
+    `lock` is held by the stage that uses it."""
+
+    captures = 0            # graphs captured by this process
+
+    def __init__(self, ops: LPOperands, it: _Iterate, st: _Stage,
+                 stgs: Settings, final_check: bool):
+        tensors, _ = _operand_leaves(ops)
+        self.static = {name: torch.empty_like(t) for name, t in tensors}
+        self.ops = _with_operands(ops, self.static)
+        self.loaded = {}
+        self.it = _from_leaves([torch.empty_like(x) for x in _leaves(it)])
+        self.st = _Stage(*(torch.empty_like(x) for x in st))
+        self.flag = torch.zeros((3,), dtype=torch.int64, device=ops.h.device)
+        self.stgs, self.final_check = stgs, final_check
+        self.graph = None
+        self.k5 = 0         # K5 launches of one replay
+        self.lock = threading.Lock()
+
+    def load(self, ops: LPOperands, it: _Iterate, st: _Stage):
+        """Copy in the operands that are not the ones loaded last, the
+        iterate and the stage's constants."""
+        tensors, _ = _operand_leaves(ops)
+        for name, t in tensors:
+            ref = self.loaded.get(name)
+            if ref is None or ref() is not t:
+                self.static[name].copy_(t)
+                self.loaded[name] = weakref.ref(t)
+        for dst, src in zip(_leaves(self.it) + list(self.st),
+                            _leaves(it) + list(st)):
+            dst.copy_(src)
+
+    def unload(self) -> _Iterate:
+        return _from_leaves([x.clone() for x in _leaves(self.it)])
+
+    def _body(self):
+        it, go = _admm_block(self.ops, self.it, self.st, stgs=self.stgs,
+                             final_check=self.final_check)
+        for dst, src in zip(_leaves(self.it), _leaves(it)):
+            dst.copy_(src)
+        self.flag.copy_(torch.stack([go.long(), it.j, it.k]))
+
+    def run(self):
+        """One block on the loaded state, then its one blocking read:
+        (goes on, j, k)."""
+        if self.graph is not None:
+            self.graph.replay()
+            if self.k5:
+                from .ops.spmv import bcsr_matvec_cuda
+                bcsr_matvec_cuda.launches += self.k5
+        elif self.flag.is_cuda:
+            self._capture()
+        else:
+            self._body()
+        with host_read():
+            go, j, k = self.flag.tolist()
+        return bool(go), j, k
+
+    def _capture(self):
+        """Run the block once uncaptured on a side stream (the libraries
+        set up their handles and workspaces there), then capture it on
+        that stream.  Not through `torch.cuda.graph`, which first
+        synchronizes the card, collects garbage and empties the
+        allocator's cache: the capture needs none of them."""
+        from .ops.spmv import bcsr_matvec_cuda
+
+        side = torch.cuda.Stream(self.flag.device)
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        tally = bcsr_matvec_cuda.captured
+        with torch.cuda.stream(side):
+            self._body()
+            with _CAPTURE_LOCK:
+                tally.n = 0
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self._body()
+                finally:
+                    graph.capture_end()
+                _BlockGraph.captures += 1
+        torch.cuda.current_stream().wait_stream(side)
+        self.k5 = tally.n
+        self.graph = graph
+
+
+_GRAPHS_KEPT = 4        # block graphs a process keeps, least recent out
+_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
+_GRAPHS_LOCK = threading.Lock()
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _graph_engages(ops: LPOperands, stgs: Settings) -> bool:
+    """Whether a stage runs as blocks: on a CUDA card, on the direct
+    path, unsharded, with the stop test read every iteration.  PCG reads
+    its own stop test every sweep; a sharded workspace runs collectives."""
+    return (_on_card(ops) and ops.chol is not None and ops.shard is None
+            and stgs.qres_period == 1)
+
+
+def _block_graph(ops: LPOperands, it: _Iterate, st: _Stage,
+                 stgs: Settings, final_check: bool):
+    """The block graph of this shape and variant with its lock taken, or
+    None where the stage runs the eager loop: where the graph does not
+    engage, or another thread holds it."""
+    if not _graph_engages(ops, stgs):
+        return None
+    tensors, rest = _operand_leaves(ops)
+    key = (str(ops.h.device),
+           tuple((n, tuple(t.shape), t.dtype) for n, t in tensors),
+           tuple(rest), tuple(x.dtype for x in _leaves(it)),
+           stgs.alpha, stgs.rho_y, stgs.eps, stgs.pfeasopt, stgs.half_update,
+           final_check)
+    with _GRAPHS_LOCK:
+        graph = _GRAPHS.get(key)
+        if graph is None:
+            graph = _GRAPHS[key] = _BlockGraph(ops, it, st, stgs,
+                                               final_check)
+            while len(_GRAPHS) > _GRAPHS_KEPT:
+                _GRAPHS.popitem(last=False)
+        _GRAPHS.move_to_end(key)
+        if not graph.lock.acquire(blocking=False):
+            return None
+    return graph
+
+
+def _running(it: _Iterate, thresh) -> bool:
+    """The eager loop's stop test, `qres >= gamma*mu` and `status == 0`:
+    its one host read of an iteration."""
     with host_read():
-        return bool((s.qres >= thresh) & (s.status == 0))
+        return bool((it.qres >= thresh) & (it.status == 0))
 
 
 def _run_inner_k(ops: LPOperands, state: InnerState, mu, beta, gamma,
                  inner_stopper, final_check, ipm_i, max_iters, *,
                  stgs: Settings) -> InnerState:
     """The hot loop, `abip.c:2131-2215`.  mu, beta, gamma are 0-d tensors
-    of the iterate's dtype; the other arguments are host values."""
-    m, n = _dims(ops)
-    solve_fn = _solve_fn(ops, stgs)
-    lam = mu / beta
-    thresh = gamma * mu
-    fre = stgs.restart_fre
+    of the iterate's dtype; the other arguments are host values.
+
+    Where `_graph_engages`, the loop runs as blocks of BLOCK iterations
+    (`_admm_block`, a CUDA graph on a card) with one host read a block;
+    a block in which a restart falls runs eagerly, one iteration and one
+    read at a time, as does every stage elsewhere."""
+    dev = state.u.device
+
+    def count(x):
+        return torch.full((), x, dtype=torch.int64, device=dev)
+
+    st = _Stage(lam=mu / beta, thresh=gamma * mu, stopper=count(inner_stopper),
+                max_iters=count(max_iters),
+                ipm_pos=torch.full((), ipm_i > 0, device=dev))
+    it = _Iterate(*state[:9], j=count(state.j), k=count(state.k),
+                  qres=state.qres, avg_criterion=state.avg_criterion,
+                  status=state.status, res=state.res)
+    j, k, cg_iters = state.j, state.k, state.cg_iters
     P = stgs.qres_period
 
-    def q_norm_resd(u, v):
-        return hsd.q_norm_resd(u, v, lambda x: _ops_matvec(ops, x),
-                               lambda y: _ops_rmatvec(ops, y), ops.b, ops.c,
-                               m, n)
-
-    s = state
-    go = _running(s, thresh)
-    while go and s.j < inner_stopper and s.k < max_iters:
-        with annotate("lp.admm"):
-            u_prev = s.u
-            with annotate("lp.project"):
-                u_t, its = hsd.project_lin_sys(s.u, s.v, ops.h, ops.g,
-                                               ops.g_th, stgs.rho_y, solve_fn,
-                                               s.k, m, n)
-            with annotate("lp.update"):
-                if stgs.half_update:
-                    u, v = hsd.admm_update_half(s.u, s.v, u_t, lam, m)
-                else:
-                    u, v = hsd.admm_update(s.u, s.v, u_prev, u_t, lam,
-                                           stgs.alpha, m)
-
-                # restart (`abip.c:587-630`): accumulate, then average
-                # every restart_fre iterations once past restart_thresh.
-                u_avg = s.u_avg + u
-                v_avg = s.v_avg + v
-                if s.k >= stgs.restart_thresh and (s.j + 1) % fre == 0:
-                    u, v = u_avg / fre, v_avg / fre
-                    u_avg = torch.zeros_like(u_avg)
-                    v_avg = torch.zeros_like(v_avg)
-
-                # cumulative average candidate (`abip.c:635-659`)
-                u_sum = s.u_sum + u
-                v_sum = s.v_sum + v
-                dom = float(s.j + 1)
-                u_avgcon = u_sum / dom
-                v_avgcon = v_sum / dom
-
-            # inner criterion (`abip.c:1951-2051`): every 10th iteration
-            # also evaluate the averaged iterate and adopt it if better.
-            # With qres_period > 1 it runs only every P-th (and 10th)
-            # iteration and stays stale in between.
-            tenth = (s.j + 1) % 10 == 0
-            fresh = P == 1 or (s.j + 1) % P == 0 or tenth
-            if fresh:
-                with annotate("lp.qres"):
-                    qres = q_norm_resd(u, v)
-                    avg_crit = torch.zeros_like(s.avg_criterion)
-                    if tenth:
-                        q_avg = q_norm_resd(u_avgcon, v_avgcon)
-                        avg_crit = q_avg < qres
-                        qres = torch.where(avg_crit, q_avg, qres)
-            else:
-                qres, avg_crit = s.qres, s.avg_criterion
-
-            # convergence check (CONVERGED_INTERVAL=1) when final_check
-            # is on
-            if final_check:
-                res = _calc_residuals_k(
-                    ops, torch.where(avg_crit, u_avgcon, u),
-                    torch.where(avg_crit, v_avgcon, v))
-                status = hsd.lp_converged_code(res, stgs.eps, stgs.pfeasopt,
-                                               ipm_i > 0 and s.k > 0)
-            else:
-                res, status = s.res, torch.zeros_like(s.status)
-
-            s = InnerState(
-                u=u, v=v, u_prev=u_prev, u_avg=u_avg, v_avg=v_avg,
-                u_sum=u_sum, v_sum=v_sum, u_avgcon=u_avgcon,
-                v_avgcon=v_avgcon, j=s.j + 1, k=s.k + 1, qres=qres,
-                avg_criterion=avg_crit, status=status, res=res,
-                cg_iters=s.cg_iters + its)
-            if fresh or final_check:
-                go = _running(s, thresh)
+    graph = _block_graph(ops, it, st, stgs, final_check)
+    inside = False          # whether the graph's buffers hold the iterate
+    try:
+        go = _running(it, st.thresh)
+        while go and j < inner_stopper and k < max_iters:
+            if (graph is not None and j % BLOCK == 0
+                    and not _restart_in_block(stgs, j, k)):
+                if not inside:
+                    graph.load(ops, it, st)
+                    inside = True
+                with annotate("lp.admm_block") as span:
+                    go, j, k_end = graph.run()
+                    span.note(iters=k_end - k)
+                k = k_end
+                continue
+            if inside:
+                it, inside = graph.unload(), False
+            with annotate("lp.admm"):
+                tenth = (j + 1) % 10 == 0
+                fresh = P == 1 or (j + 1) % P == 0 or tenth
+                it, its = _admm_step(
+                    ops, it, st, k, stgs=stgs, tenth=tenth, fresh=fresh,
+                    restart=(k >= stgs.restart_thresh
+                             and (j + 1) % stgs.restart_fre == 0),
+                    final_check=final_check)
+                j, k, cg_iters = j + 1, k + 1, cg_iters + its
+                if fresh or final_check:
+                    go = _running(it, st.thresh)
+        if inside:
+            it = graph.unload()
+    finally:
+        if graph is not None:
+            graph.lock.release()
     if stgs.half_update:
         # On a qres-triggered break only, lift strictly negative duals to
         # 1e-6 (`abip.c:2175-2185`); small positives and the y-block are
         # left untouched.
-        qres_exit = (s.qres < thresh) & (s.status == 0)
-        s = s._replace(v=torch.where(qres_exit & (s.v < 0),
-                                     torch.full_like(s.v, 1e-6), s.v))
-    return s
+        qres_exit = (it.qres < st.thresh) & (it.status == 0)
+        it = it._replace(v=torch.where(qres_exit & (it.v < 0),
+                                       torch.full_like(it.v, 1e-6), it.v))
+    return InnerState(*it[:9], j=j, k=k, qres=it.qres,
+                      avg_criterion=it.avg_criterion, status=it.status,
+                      res=it.res, cg_iters=cg_iters)
 
 
 @dataclasses.dataclass

@@ -20,6 +20,10 @@ workspace, for shapes no shared memory holds) against the plain version,
 batches solved with every kernel spilled (`device.limit_shared_memory`),
 and a batch whose lane one block of the first K2 could not hold in
 shared memory solved through the kernels (`chip_smoke.phase_repair`).
+The host LP loop replayed as CUDA graphs of 10-iteration blocks against
+its eager loop, bit for bit (the smoke LP, a CSR A through K5, example
+08's `update_problem` ticks), its graphs captured once a variant, and
+beside another thread solving.
 The host conic driver (no kernel of its own): `solve_qcp` on the card
 against the port on the CPU, and the CLI's file functions on the card.
 The rest of the single-card port (no kernel of its own; K1 through the
@@ -444,6 +448,153 @@ def test_host_lp_float32_on_card(cuda_device, sparse):
     f64 = solve_lp(A, b, c, eps=1e-4, device=cuda_device)
     assert f32.status_name == f64.status_name == "Solved"
     assert abs(f32.pobj - f64.pobj) <= 1e-3 * abs(f64.pobj)
+
+
+# -- the host LP loop as CUDA graphs of blocks --------------------------------
+
+def _host_lp_runs(monkeypatch, fn):
+    """fn() with the host LP loop's blocks, then on its eager loop:
+    (graph result, eager result, blocks run)."""
+    from abip_tpu_torch import lp
+
+    runs, real_run = [], lp._BlockGraph.run
+    monkeypatch.setattr(lp._BlockGraph, "run",
+                        lambda self: runs.append(1) or real_run(self))
+    graph = fn()
+    with monkeypatch.context() as mp:
+        mp.setattr(lp, "_graph_engages", lambda *a: False)
+        eager = fn()
+    return graph, eager, len(runs)
+
+
+def _assert_same_solutions(graph, eager):
+    for g, e in zip(graph, eager):
+        assert (g.status_name, g.admm_iters, g.ipm_iters) == (
+            e.status_name, e.admm_iters, e.ipm_iters)
+        for name in "xys":
+            np.testing.assert_array_equal(getattr(g, name), getattr(e, name))
+
+
+def _parametric_ticks(device, ticks=4):
+    """Example 08's sequence: one workspace, `update_problem` each tick,
+    warm-started from the tick before."""
+    from abip_tpu_torch import Settings
+    from abip_tpu_torch.lp import LPWorkspace
+
+    rng = np.random.default_rng(0)
+    m, n = 40, 400
+    A = np.concatenate(
+        [rng.standard_normal((m, n - m)) * (rng.random((m, n - m)) < 0.3),
+         np.eye(m)], axis=1)
+    b0 = A @ (rng.random(n) + 0.5)
+    c = A.T @ rng.standard_normal(m) + rng.random(n) + 0.5
+    w = LPWorkspace(A, b0, c, Settings(eps=1e-6, adaptive=False),
+                    device=device)
+    out = [w.solve()]
+    for k in range(ticks):
+        w.update_problem(b0 * (1.0 + 0.02 * np.sin(0.3 * (k + 1))), c)
+        out.append(w.solve(warm=(out[-1].x, out[-1].y, out[-1].s)))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dense-smoke", "k5-sparse", "update-problem"])
+def test_host_lp_graph_matches_eager_loop(cuda_device, monkeypatch, case):
+    """The host LP loop replayed as CUDA graphs of blocks gives its eager
+    loop's x, y, s bit for bit, with the same ADMM and IPM counts: on
+    the smoke LP (dense A), on a CSR A whose products launch K5, and on
+    example 08's `update_problem` ticks, whose new b and c the graph's
+    buffers take in."""
+    import scipy.sparse as sp
+
+    from abip_tpu_torch import solve_lp
+    from abip_tpu_torch.ops.spmv import bcsr_matvec_cuda
+    from bench import reference_smoke_lp
+
+    if case == "update-problem":
+        def fn():
+            return _parametric_ticks(cuda_device)
+    else:
+        A, b, c = reference_smoke_lp(*(50, 1950) if case == "dense-smoke"
+                                     else (20, 180), seed=3)
+        if case == "k5-sparse":
+            A = sp.csr_matrix(A)
+
+        def fn():
+            bcsr_matvec_cuda.launches = 0
+            sol = solve_lp(A, b, c, eps=1e-6, device=cuda_device)
+            sol.k5 = bcsr_matvec_cuda.launches
+            return [sol]
+    graph, eager, blocks = _host_lp_runs(monkeypatch, fn)
+    assert blocks > 0
+    assert all(s.status_name == "Solved" for s in graph)
+    if case == "k5-sparse":
+        # a replay counts the launches it holds, masked iterations too
+        assert graph[0].k5 >= eager[0].k5 >= 4 * eager[0].admm_iters
+    _assert_same_solutions(graph, eager)
+
+
+@pytest.mark.cuda
+def test_host_lp_graph_captures_each_variant_once(cuda_device, monkeypatch):
+    """Seven solves of one shape capture two graphs, the block without
+    and with the final check, and reuse them, each solve copying its
+    own operands in."""
+    import collections
+
+    from abip_tpu_torch import lp, solve_lp
+    from bench import reference_smoke_lp
+
+    monkeypatch.setattr(lp, "_GRAPHS", collections.OrderedDict())
+    before = lp._BlockGraph.captures
+    sols = [solve_lp(*reference_smoke_lp(m=50, n_rand=1950, seed=20 + i),
+                     eps=1e-6, device=cuda_device) for i in range(7)]
+    assert lp._BlockGraph.captures - before == 2
+    assert len(lp._GRAPHS) == 2
+    assert all(s.status_name == "Solved" for s in sols)
+
+
+@pytest.mark.cuda
+def test_host_lp_graph_runs_every_iteration(cuda_device):
+    """Under the profiler, the `iters` noted on the smoke solve's
+    `lp.admm_block` spans add up to its ADMM iterations, and no
+    iteration runs eagerly (`lp.admm`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from abip_tpu_torch import solve_lp
+    from abip_tpu_torch.utils import profiling
+    from bench import reference_smoke_lp
+
+    A, b, c = reference_smoke_lp(m=50, n_rand=1950, seed=3)
+    solve_lp(A, b, c, eps=1e-6, device=cuda_device)     # captures
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sol = solve_lp(A, b, c, eps=1e-6, device=cuda_device)
+    spans = profiling.spans()
+    blocks = [s for s in spans if s.name == "lp.admm_block"]
+    assert blocks and not any(s.name == "lp.admm" for s in spans)
+    assert sum(s.attrs["iters"] for s in blocks) == sol.admm_iters
+
+
+@pytest.mark.cuda
+def test_host_lp_graph_beside_another_thread(cuda_device):
+    """Two threads solving LPs of one shape on the card at once: both
+    finish with the answers each gives alone, bit for bit (the second to
+    reach a stage whose graph the other holds runs it eagerly)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from abip_tpu_torch import solve_lp
+    from bench import reference_smoke_lp
+
+    probs = [reference_smoke_lp(m=50, n_rand=1950, seed=40 + i)
+             for i in range(2)]
+
+    def one(p):
+        return solve_lp(*p, eps=1e-6, device=cuda_device)
+
+    alone = [one(p) for p in probs]
+    with ThreadPoolExecutor(2) as pool:
+        together = list(pool.map(one, probs))
+    _assert_same_solutions(together, alone)
 
 
 # -- the host conic driver ----------------------------------------------------
