@@ -1,9 +1,10 @@
 """The upstream install test's LP, drawn from a seed.
 
-Frozen copy of `bench.py:39-51` (`reference_smoke_lp`), the shape of the
-upstream `test/test_abip_install.m:7-21`: A = [sprand(m, n_rand,
+Frozen copy of `bench.py:39-51` (`reference_smoke_lp`), its reading of
+the upstream `test/test_abip_install.m:7-21`: A = [sprand(m, n_rand,
 density), I_m], b = A x0, c = A'y0 + s0 with x0, s0 > 0, so the LP is
-feasible and bounded.  Kept here so that a change to the program's copy
+feasible and bounded (where another reading differs, the configuration's
+`reduced` names it).  Kept here so that a change to the program's copy
 cannot move the benchmark's inputs.
 """
 from __future__ import annotations

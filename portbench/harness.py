@@ -72,6 +72,13 @@ def load_module(path: Path):
     return mod
 
 
+def load_entry(config: dict, traffic: dict):
+    """The entry module of the configuration's problem on the traffic's
+    route."""
+    return load_module(
+        HERE / "entries" / f"{config['problem']}_{traffic['route']}.py")
+
+
 def load_cell(name: str, manifest: dict | None = None) -> SimpleNamespace:
     """The cell `name` of the manifest with its configuration, traffic,
     entry module and the metrics it reports, by trace mode."""
@@ -87,8 +94,7 @@ def load_cell(name: str, manifest: dict | None = None) -> SimpleNamespace:
     if traffic.get("pool", 0) % traffic["batch"]:
         raise ValueError(f"traffic {cell['traffic']!r}: the pool holds "
                          f"whole calls of {traffic['batch']}")
-    entry = load_module(
-        HERE / "entries" / f"{config['problem']}_{traffic['route']}.py")
+    entry = load_entry(config, traffic)
     e2e = [m for m in man["end_to_end"]
            if name in m.get("workloads", cells)]
     reported = {m["name"] for m in e2e}

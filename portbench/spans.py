@@ -37,11 +37,19 @@ def trees(record, layer):
         noted = tree[0].attrs.get("admm_iters")
         if noted is None:
             return None
-        noted = noted.cpu() if hasattr(noted, "cpu") else noted
-        if not np.array_equal(np.asarray(noted).reshape(-1),
+        if not np.array_equal(_numpy(noted).reshape(-1),
                               np.asarray(answers["admm_iters"]).reshape(-1)):
             return None
     return roots
+
+
+def _numpy(value):
+    return np.asarray(value.cpu() if hasattr(value, "cpu") else value)
+
+
+def admm_iters(trees):
+    """The ADMM iterations noted on the trees' roots, summed."""
+    return int(sum(_numpy(t[0].attrs["admm_iters"]).sum() for t in trees))
 
 
 def named(tree, name):

@@ -26,6 +26,22 @@ def test_control_is_not_correct(name):
         is False
 
 
+@pytest.mark.parametrize("name", CELLS)
+def test_control_stops_at_the_configurations_eps(name, monkeypatch):
+    """The reference in float32 is asked for the configuration's own eps:
+    a control that stopped short would read not correct for that alone."""
+    from portbench import reference
+
+    got = []
+    monkeypatch.setattr(reference, "solve",
+                        lambda A, b, c, cones, eps: got.append(eps))
+    cell = tiny_cell(name)
+    entry = control.control_entry()
+    call = entry.prepare(cell.config, cell.traffic, "cpu")
+    call(entry.stage(harness.make_instances(cell, [[1, 2, 3]])))
+    assert got == [cell.config["eps"]]
+
+
 def unchanged(ans):
     """The state a solve starts from, returned as its answer."""
     return dict(ans, **{k: np.zeros_like(ans[k]) for k in ("x", "y", "s")})

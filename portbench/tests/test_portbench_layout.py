@@ -6,12 +6,14 @@ import re
 import pytest
 
 from portbench import harness, reference
+from portbench.tests.cases import configurations
 
 MAN = harness.load_json(harness.ROOT / "BENCHMARK.json")
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
 CELLS = [w["name"] for w in MAN["workloads"]]
 METRICS = MAN["end_to_end"] + MAN["per_layer"]
+CONFIGS = configurations()
 
 
 def test_manifest_keys_and_size():
@@ -74,14 +76,36 @@ def test_every_metric_and_config_is_used():
     assert files == {m["name"] for m in METRICS}
 
 
+def columns(cones):
+    return sum(cones.get("soc", ())) + sum(cones.get("rsoc", ())) \
+        + cones.get("nonneg", 0)
+
+
+def generator(conf):
+    return harness.load_module(harness.HERE / "generators"
+                               / f"{conf['generator']}.py")
+
+
 def test_config_files_name_their_cones():
     for c in MAN["configs"]:
         conf = json.loads((harness.ROOT / c["file"]).read_text())
         assert conf["reduced"] == c["reduced"]
         assert all(key in conf for key in conf["reduced"])
-        gen = harness.load_module(harness.HERE / "generators"
-                                  / f"{conf['generator']}.py")
-        inst = gen.make(conf["params"], [1, 2, 3])
-        assert inst["A"].shape[1] == sum(conf["cones"].get("soc", ())) \
-            + sum(conf["cones"].get("rsoc", ())) + conf["cones"].get(
-                "nonneg", 0)
+        inst = generator(conf).make(conf["params"], [1, 2, 3])
+        assert inst["A"].shape[1] == columns(conf["cones"])
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_names_its_tiny_shape(name):
+    """The CPU tests' shape: the generator's params and the cones, with
+    the cone kinds of the full shape."""
+    conf = CONFIGS[name]
+    tiny = conf["tiny"]
+    assert set(tiny) == {"params", "cones"}
+    inst = generator(conf).make(tiny["params"], [1, 2, 3])
+    assert inst["A"].shape[1] == columns(tiny["cones"])
+
+    def kinds(cones):
+        return {k for k, v in cones.items() if v}
+
+    assert kinds(tiny["cones"]) == kinds(conf["cones"])

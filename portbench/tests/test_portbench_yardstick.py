@@ -5,14 +5,16 @@ import torch
 
 from portbench import reference, roofline
 from portbench.generators import randcone, smoke_lp
-from portbench.tests.cases import TINY_CONES, TINY_LP
+from portbench.tests.cases import TINY_CONIC, configurations
 
-CONES = {"soc": [125, 125], "rsoc": [20], "nonneg": 750}
+CONES = TINY_CONIC["cones"]
+TINY_LP = configurations()["smoke_lp"]["tiny"]
+TINY_CONES = TINY_CONIC["tiny"]["cones"]
 
 
-@pytest.mark.parametrize("gen,params", [(smoke_lp, TINY_LP),
-                                        (randcone, {"m": 7,
-                                                    "cones": TINY_CONES})])
+@pytest.mark.parametrize("gen,params", [(smoke_lp, TINY_LP["params"]),
+                                        (randcone,
+                                         TINY_CONIC["tiny"]["params"])])
 def test_generators_repeat_for_a_seed(gen, params):
     a, b, c = (gen.make(params, s) for s in ([5, 1, 2], [5, 1, 2], [5, 1, 3]))
     for key in ("A", "b", "c"):
@@ -27,7 +29,7 @@ def test_smoke_lp_matches_its_origin_shape():
 
 
 def test_randcone_optimum_is_certified():
-    inst = randcone.make({"m": 340, "cones": CONES}, [7, 1, 0])
+    inst = randcone.make(TINY_CONIC["params"], [7, 1, 0])
     A, b, c, x, y, s = (inst[k] for k in "Abcxys")
     assert np.abs(A @ x - b).max() < 1e-12
     assert np.abs(A.T @ y + s - c).max() < 1e-12
@@ -44,7 +46,7 @@ def _stack(insts):
 
 
 def test_reference_reaches_the_known_conic_optimum():
-    insts = [randcone.make({"m": 7, "cones": TINY_CONES}, [3, 1, i])
+    insts = [randcone.make(TINY_CONIC["tiny"]["params"], [3, 1, i])
              for i in range(4)]
     A, b, c = _stack(insts)
     r = reference.solve(A, b, c, TINY_CONES, 1e-9)
@@ -58,9 +60,9 @@ def test_reference_reaches_the_known_conic_optimum():
 def test_reference_matches_highs_on_the_lp():
     from scipy.optimize import linprog
 
-    insts = [smoke_lp.make(TINY_LP, [4, 1, i]) for i in range(3)]
+    insts = [smoke_lp.make(TINY_LP["params"], [4, 1, i]) for i in range(3)]
     A, b, c = _stack(insts)
-    r = reference.solve(A, b, c, {"nonneg": 40}, 1e-9)
+    r = reference.solve(A, b, c, TINY_LP["cones"], 1e-9)
     assert bool((r.status == 1).all())
     for d, x in zip(insts, r.x):
         ref = linprog(d["c"], A_eq=d["A"], b_eq=d["b"], bounds=(0, None),
