@@ -33,6 +33,7 @@ import torch
 
 from ..device import ieee_f32
 from ..ops.admm_delta import _mv
+from ..utils.profiling import annotate
 from .cg import pcg
 
 f32 = torch.float32
@@ -349,6 +350,14 @@ class CGSchurSolver:
         return out
 
     def solve(self, w_y, w_x, iter_count=0, warm_start=None, tol_hint=None):
+        """One PCG solve, the span `qcp.cg`, which notes its `iters`."""
+        with annotate("qcp.cg") as span:
+            z_y, z_x, iters = self._solve(w_y, w_x, iter_count, warm_start,
+                                          tol_hint)
+            span.note(iters=iters)
+            return z_y, z_x, iters
+
+    def _solve(self, w_y, w_x, iter_count, warm_start, tol_hint):
         norm_p = torch.linalg.vector_norm(w_x)
         it = float(iter_count)
         if it < 0:

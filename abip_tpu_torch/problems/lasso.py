@@ -42,6 +42,24 @@ class ConicProblem:
     # the reference vtable's `init_spe_linsys_work`/`solve_spe_linsys`
     # (`include/abip.h:29-60`), used in place of the generic CG path
     solver_factory: callable | None = None
+    # maps a solution of the scaled operator form to the units of the
+    # embedding (`un_scaling_qcp_sol`, `qcp_config.c:496-513`); None
+    # where the solve already returns them
+    unscale: callable | None = None
+
+
+def _recover(X, y, lam: float):
+    """(w, objective) from a solution in the embedding's units:
+    w = w+ - w-."""
+    m, n = X.shape
+
+    def recover(sol):
+        z = np.asarray(sol.x)
+        w = z[2 + m:2 + m + n] - z[2 + m + n:]
+        obj = 0.5 * np.sum((X @ w - y) ** 2) + lam * np.sum(np.abs(w))
+        return w, obj
+
+    return recover
 
 
 def lasso_to_conic(X, y, lam: float) -> ConicProblem:
@@ -66,14 +84,8 @@ def lasso_to_conic(X, y, lam: float) -> ConicProblem:
     c[2 + m:] = lam
 
     cones = ConeSpec(rsoc=(2 + m,), nonneg=2 * n)
-
-    def recover(sol):
-        z = np.asarray(sol.x)
-        w = z[2 + m:2 + m + n] - z[2 + m + n:]
-        obj = 0.5 * np.sum((X @ w - y) ** 2) + lam * np.sum(np.abs(w))
-        return w, obj
-
-    return ConicProblem(A=A, b=b, c=c, cones=cones, recover=recover)
+    return ConicProblem(A=A, b=b, c=c, cones=cones,
+                        recover=_recover(X, y, lam))
 
 
 def lasso_operator(X, y, lam: float, scaled: bool = True,
@@ -88,7 +100,8 @@ def lasso_operator(X, y, lam: float, scaled: bool = True,
     matrix's row and column norms follow from X in closed form (E tied
     over the RSOC block), with the b/c normalization of the dense
     pipeline.  The solve runs in scaled units (tolerances apply there,
-    as in the reference's app configs); `recover` maps back."""
+    as in the reference's app configs); `unscale` maps a solution to
+    the units of `lasso_to_conic`'s embedding, which `recover` reads."""
     from ..linsys.schur import LASSO_PCG_LADDER
     from ..problem import LinearOperator
 
@@ -151,14 +164,17 @@ def lasso_operator(X, y, lam: float, scaled: bool = True,
     c_s = c / E * sc_c
     cones = ConeSpec(rsoc=(2 + m,), nonneg=2 * n)
 
-    def recover(sol):
-        z = np.asarray(sol.x) / (E * sc_b)   # un-scale (`un_scaling_qcp_sol`)
-        w = z[2 + m:2 + m + n] - z[2 + m + n:]
-        obj = 0.5 * np.sum((Xnp @ w - y) ** 2) + lam * np.sum(np.abs(w))
-        return w, obj
+    def unscale(sol):
+        # A_s = D^-1 A E^-1, b_s = sc_b D^-1 b, c_s = sc_c E^-1 c
+        return dataclasses.replace(
+            sol, x=np.asarray(sol.x) / (E * sc_b),
+            y=np.asarray(sol.y) / (D * sc_c),
+            s=np.asarray(sol.s) * E / sc_c,
+            pobj=sol.pobj / (sc_b * sc_c), dobj=sol.dobj / (sc_b * sc_c))
 
-    return ConicProblem(A=op, b=b_s, c=c_s, cones=cones, recover=recover,
-                        tol_ladder=LASSO_PCG_LADDER)
+    return ConicProblem(A=op, b=b_s, c=c_s, cones=cones,
+                        recover=_recover(Xnp, y, lam),
+                        tol_ladder=LASSO_PCG_LADDER, unscale=unscale)
 
 
 def solve_lasso_batch(Xs, ys, lams, eps=1e-4, device=None, **kw):
@@ -191,15 +207,24 @@ def solve_lasso(X, y, lam: float, settings=None, matrix_free: bool = False,
     (w, objective, conic solution), as the `abip_ml` front door
     (`mex/abip_ml_mex.c:90-146`).  `matrix_free=True` takes the operator
     form (X applied twice, the reformulated matrix never formed) with CG
-    solves."""
-    from ..qcp import conic_defaults, solve_qcp
+    solves.  Either form returns the conic solution in the units of
+    `lasso_to_conic`'s embedding.  The whole call, the embedding's build
+    included, is one root span `qcp.solve`."""
+    from ..qcp import ConicWorkspace, conic_defaults
+    from ..utils.profiling import annotate
 
-    if matrix_free:
-        prob = lasso_operator(X, y, lam, device=device)
-        settings = settings or conic_defaults(normalize=False, linsys="cg")
-    else:
-        prob = lasso_to_conic(X, y, lam)
-    sol = solve_qcp(prob.A, prob.b, prob.c, prob.cones, settings=settings,
-                    tol_ladder=prob.tol_ladder, device=device, **overrides)
-    w, obj = prob.recover(sol)
-    return w, obj, sol
+    settings = settings or (conic_defaults(normalize=False, linsys="cg")
+                            if matrix_free else conic_defaults())
+    if overrides:
+        settings = dataclasses.replace(settings, **overrides)
+    with annotate("qcp.solve") as root:
+        with annotate("qcp.setup"):
+            prob = (lasso_operator(X, y, lam, device=device) if matrix_free
+                    else lasso_to_conic(X, y, lam))
+        sol = ConicWorkspace(prob.A, prob.b, prob.c, prob.cones,
+                             settings=settings, tol_ladder=prob.tol_ladder,
+                             device=device).solve(root=root)
+        if prob.unscale is not None:
+            sol = prob.unscale(sol)
+        w, obj = prob.recover(sol)
+        return w, obj, sol

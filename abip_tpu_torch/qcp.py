@@ -22,6 +22,13 @@ carry the lane axis of `conic_ops` at B=1.
 
 LP is the special case Q=0, K=R+^n -- but the dedicated `lp.py` driver
 keeps the reference's LP-specialized economies.
+
+Spans (`utils.profiling`): `qcp.solve` roots a solve and notes its
+`admm_iters` and `cg_iters`; under it `qcp.setup`, the `PhaseTimers`
+phases `qcp.inner_admm` and `qcp.residuals`, `qcp.admm` (one iteration:
+`qcp.project` with the Schur solve, `linsys.schur`'s `qcp.cg`,
+`qcp.cone`, `qcp.check`), `qcp.mu_update` and `qcp.extract`; every
+blocking read is a `qcp.host_read`.
 """
 from __future__ import annotations
 
@@ -45,6 +52,7 @@ from .scaling import (MAX_SCALE, MIN_SCALE, ConicScalingData,
                       equilibrate_conic)
 from .settings import Settings, Status
 from .utils.checkpoint import ConicCheckpoint
+from .utils.profiling import annotate, host_read
 
 EPS_TOL = 1e-18
 
@@ -96,8 +104,9 @@ class ConicSolution:
 
 def _floats(*tensors) -> list:
     """0-d or one-element tensors as host floats, in one device read."""
-    return torch.stack([t.reshape(()).to(torch.float64)
-                        for t in tensors]).tolist()
+    packed = torch.stack([t.reshape(()).to(torch.float64) for t in tensors])
+    with host_read():
+        return packed.tolist()
 
 
 def _as_tensor(x, dtype, dev):
@@ -115,11 +124,20 @@ class ConicWorkspace:
     builds a custom KKT backend for the CG path: a solver with the
     reference's `solve(w_y, w_x, iter_count, warm_start, tol_hint)` on
     1-D vectors (`linsys.schur.LowRankWoodburySolver`, for instance).
-    `device` defaults to the CUDA card (see `device.resolve_device`)."""
+    `device` defaults to the CUDA card (see `device.resolve_device`).
+    `linsys_iters` counts the iterations of every block solve the
+    workspace made, the setup's included."""
 
     def __init__(self, A, b, c, cones: ConeSpec, Q=None,
                  settings: Optional[Settings] = None, tol_ladder=None,
                  solver_factory=None, device=None):
+        self.linsys_iters = 0
+        with annotate("qcp.setup"):
+            self._setup(A, b, c, cones, Q, settings, tol_ladder,
+                        solver_factory, device)
+
+    def _setup(self, A, b, c, cones, Q, settings, tol_ladder, solver_factory,
+               device):
         settings = (settings or conic_defaults()).resolved()
         settings.validate()
         t0 = time.perf_counter()
@@ -295,7 +313,9 @@ class ConicWorkspace:
         z_y, z_x, its = self.solver.solve(
             w_y[0], w_x[0], iter_count=k,
             warm_start=None if warm is None else warm[0], tol_hint=err)
-        return z_y[None], z_x[None], its if isinstance(its, int) else int(its)
+        its = its if isinstance(its, int) else int(its)
+        self.linsys_iters += its
+        return z_y[None], z_x[None], its
 
     def _matvec(self, x):
         return self.A_op.matvec(x[0])[None]
@@ -334,12 +354,14 @@ class ConicWorkspace:
         most 8) the residual check; then the one read-back."""
         stgs = self.stgs
         m, n = self.m, self.n
-        u_t, its = conic_ops.projection(
-            s.u, s.v, self._solve, self.rho, self.r_vec, self.a_coef,
-            self._Q_times, m, n, s.k, err_ratio=s.error_ratio)
-        u, v = conic_ops.barrier_and_dual(s.u, s.v, u_t, lam, self.rho_tail,
-                                          self.layout, stgs.alpha, m, n,
-                                          self.co)
+        with annotate("qcp.project"):
+            u_t, its = conic_ops.projection(
+                s.u, s.v, self._solve, self.rho, self.r_vec, self.a_coef,
+                self._Q_times, m, n, s.k, err_ratio=s.error_ratio)
+        with annotate("qcp.cone"):
+            u, v = conic_ops.barrier_and_dual(s.u, s.v, u_t, lam,
+                                              self.rho_tail, self.layout,
+                                              stgs.alpha, m, n, self.co)
         v_origin = self.rho * v
         k = s.k + 1
         err = conic_ops.inner_conv_check(u, v_origin, self._matvec,
@@ -347,12 +369,14 @@ class ConicWorkspace:
                                          self.b, self.c, m, n)
         # cadenced residual check (`source/abip.c:1170-1207`)
         if (s.j + 1) % stgs.inner_check_period == 0 or s.error_ratio <= 8.0:
-            res = self._calc_residuals(u, v_origin, s.res)
-            st = self._has_converged(res, ipm_i > 0 and k > 0)
-            err_h, st_h, ratio = _floats(err, st, res.error_ratio)
+            with annotate("qcp.check"):
+                res = self._calc_residuals(u, v_origin, s.res)
+                st = self._has_converged(res, ipm_i > 0 and k > 0)
+                err_h, st_h, ratio = _floats(err, st, res.error_ratio)
         else:
             res, st_h, ratio = s.res, 0, s.error_ratio
-            err_h = err.item()
+            with host_read():
+                err_h = err.item()
         return ConicInnerState(u=u, v=v, v_origin=v_origin, j=s.j + 1, k=k,
                                err_inner=err_h, status=int(st_h), res=res,
                                error_ratio=ratio, cg_iters=s.cg_iters + its)
@@ -364,7 +388,8 @@ class ConicWorkspace:
         solve and k < k_cap (`abip_tpu/qcp.py:167-184`)."""
         while (s.j < j_cap and s.err_inner >= tol_inner and s.status == 0
                and s.k < k_cap):
-            s = self._iterate(s, lam, ipm_i)
+            with annotate("qcp.admm"):
+                s = self._iterate(s, lam, ipm_i)
         return s
 
     # ------------------------------------------------------------------ #
@@ -453,8 +478,9 @@ class ConicWorkspace:
         m, n = self.m, self.n
         if x.shape != (n,) or y.shape != (m,) or s.shape != (n,):
             raise ValueError("warm start must be (x (n,), y (m,), s (n,))")
-        D = self.scal.D[0].cpu().numpy()
-        E = self.scal.E[0].cpu().numpy()
+        with host_read():
+            D = self.scal.D[0].cpu().numpy()
+            E = self.scal.E[0].cpu().numpy()
         sc_b, sc_c = _floats(self.scal.sc_b, self.scal.sc_c)
         # invert the un-scaling of `_extract_solution`
         x_s = x * (E * sc_b)
@@ -469,14 +495,29 @@ class ConicWorkspace:
         return u, v
 
     def solve(self, warm=None, resume=None, checkpoint_path=None,
-              checkpoint_every=0) -> ConicSolution:
+              checkpoint_every=0, root=None) -> ConicSolution:
         """Run the solver.
 
         warm: optional (x, y, s) in original units to seed the iterate.
         resume: optional `ConicCheckpoint` to continue a prior solve.
         checkpoint_path/checkpoint_every: save state every k outer
         iterations (plus once at exit) to `checkpoint_path`.
+        root: the open root span `qcp.solve` of a caller that built this
+        workspace under it (`solve_qcp`, `problems.solve_lasso`); without
+        one the solve opens its own.  The root notes the solve's ADMM
+        iterations (`admm_iters`) and the iterations of the block solves
+        made under it (`cg_iters`: the setup's too, where the workspace
+        was built under it).
         """
+        if root is not None:
+            return self._run(root, 0, warm, resume, checkpoint_path,
+                             checkpoint_every)
+        with annotate("qcp.solve") as span:
+            return self._run(span, self.linsys_iters, warm, resume,
+                             checkpoint_path, checkpoint_every)
+
+    def _run(self, root, linsys0, warm, resume, checkpoint_path,
+             checkpoint_every) -> ConicSolution:
         from .utils import IterationLog, PhaseTimers, solver_banner
 
         stgs = self.stgs
@@ -577,7 +618,8 @@ class ConicWorkspace:
                 if status != 0 or state.k + 1 >= k_cap or timed_out:
                     break
 
-                mu, tol_inner = self._adjust_barrier(mu, res_np)
+                with annotate("qcp.mu_update"):
+                    mu, tol_inner = self._adjust_barrier(mu, res_np)
                 if checkpoint_path and checkpoint_every and \
                         (i + 1) % checkpoint_every == 0:
                     self._checkpoint(state, mu, tol_inner,
@@ -591,7 +633,11 @@ class ConicWorkspace:
             self._checkpoint(state, mu, tol_inner,
                              ipm_iter + 1).save(checkpoint_path)
 
-        sol = self._extract_solution(state, res_np, status, ipm_iter, t0, k0)
+        with annotate("qcp.extract"):
+            sol = self._extract_solution(state, res_np, status, ipm_iter, t0,
+                                         k0)
+        root.note(admm_iters=sol.admm_iters,
+                  cg_iters=self.linsys_iters - linsys0)
         log.footer(sol.status_name, {
             "pobj": sol.pobj, "dobj": sol.dobj,
             "res_pri": sol.res_pri, "res_dual": sol.res_dual,
@@ -604,9 +650,10 @@ class ConicWorkspace:
 
     @staticmethod
     def _checkpoint(state, mu, tol_inner, ipm_iters):
-        return ConicCheckpoint(
-            u=state.u[0].cpu().numpy(), v=state.v[0].cpu().numpy(), mu=mu,
-            tol_inner=tol_inner, admm_iters=state.k, ipm_iters=ipm_iters)
+        with host_read():
+            u, v = state.u[0].cpu().numpy(), state.v[0].cpu().numpy()
+        return ConicCheckpoint(u=u, v=v, mu=mu, tol_inner=tol_inner,
+                               admm_iters=state.k, ipm_iters=ipm_iters)
 
     def _extract_solution(self, state, res_np, status, ipm_iter, t0, k0):
         """`get_solution` (`source/abip.c:559-587`) + un-scaling
@@ -616,8 +663,9 @@ class ConicWorkspace:
         the cumulative k, `abip_tpu/qcp.py:838`)."""
         m, n = self.m, self.n
         stgs = self.stgs
-        u = state.u[0].cpu().numpy()
-        v = state.v[0].cpu().numpy()
+        with host_read():
+            u = state.u[0].cpu().numpy()
+            v = state.v[0].cpu().numpy()
         if res_np is None:
             res_np = dict(zip(ConicResiduals._fields, _floats(
                 *self._calc_residuals(state.u, state.v_origin, state.res))))
@@ -641,8 +689,9 @@ class ConicWorkspace:
             x, y, s = x / tau, y / tau, s / tau
 
         if stgs.normalize:
-            D = self.scal.D[0].cpu().numpy()
-            E = self.scal.E[0].cpu().numpy()
+            with host_read():
+                D = self.scal.D[0].cpu().numpy()
+                E = self.scal.E[0].cpu().numpy()
             sc_b, sc_c = _floats(self.scal.sc_b, self.scal.sc_c)
             x = x / (E * sc_b)
             y = y / (D * sc_c)
@@ -666,11 +715,13 @@ def solve_qcp(A, b, c, cones: ConeSpec, Q=None,
               settings: Optional[Settings] = None, tol_ladder=None,
               solver_factory=None, device=None, **overrides) -> ConicSolution:
     """One-call conic solve (`abip()`, `source/abip.c:1335-1371`); runs
-    on the CUDA card unless `device` says otherwise."""
+    on the CUDA card unless `device` says otherwise.  The workspace's
+    setup and its solve share one root span `qcp.solve`."""
     settings = settings or conic_defaults()
     if overrides:
         settings = dataclasses.replace(settings, **overrides)
-    w = ConicWorkspace(A, b, c, cones, Q=Q, settings=settings,
-                       tol_ladder=tol_ladder, solver_factory=solver_factory,
-                       device=device)
-    return w.solve()
+    with annotate("qcp.solve") as root:
+        w = ConicWorkspace(A, b, c, cones, Q=Q, settings=settings,
+                           tol_ladder=tol_ladder,
+                           solver_factory=solver_factory, device=device)
+        return w.solve(root=root)

@@ -25,7 +25,10 @@ its eager loop, bit for bit (the smoke LP, a CSR A through K5, example
 08's `update_problem` ticks), its graphs captured once a variant, and
 beside another thread solving.
 The host conic driver (no kernel of its own): `solve_qcp` on the card
-against the port on the CPU, and the CLI's file functions on the card.
+against the port on the CPU, the CLI's file functions on the card, and
+one full-size instance of the benchmark's `lasso_paper` configuration
+through its entry (the matrix-free `solve_lasso`) against the plain
+reference under the configuration's limits.
 The rest of the single-card port (no kernel of its own; K1 through the
 thread pool): the same-pattern sparse family driver deterministic on the
 card, the lane-swap stream and the pool against serial solves, PDHG's
@@ -1203,3 +1206,41 @@ def test_k2_k3_on_fuzz_batches(cuda_device):
     (`chip_smoke.phase_fuzz_parity`)."""
     k2, k3 = chip_smoke.phase_fuzz_parity(torch, cuda_device)
     assert k2 >= 0.0 and k3 >= 0.0
+
+
+@pytest.mark.cuda
+def test_lasso_paper_instance_on_card(cuda_device):
+    """One instance of the benchmark's `lasso_paper` configuration at its
+    full size (m=1000, n=5000) through the benchmark's entry, the
+    matrix-free `solve_lasso`, judged against the plain reference under
+    the configuration's limits: solved, within every limit, and the one
+    `qcp.solve` root of the profiled call notes the answer's ADMM count
+    and the sum of its `qcp.cg` spans' iterations."""
+    from portbench import harness, reference
+    from abip_tpu_torch.utils import profiling
+
+    cell = harness.load_cell("lasso_paper.m1000_n5000")
+    insts = harness.make_instances(
+        cell, [harness.instance_seed(0, harness.POOL, 0)])
+    call = cell.entry.prepare(cell.config, cell.traffic, "cuda")
+    profiling.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        ans = cell.entry.answers(call(cell.entry.stage(insts)))
+    spans = profiling.spans()
+    profiling.clear()
+    (root,) = [s for s in spans if s.parent_id is None]
+    assert root.name == "qcp.solve"
+    assert root.attrs["admm_iters"] == int(ans["admm_iters"][0])
+    assert root.attrs["cg_iters"] == sum(s.attrs["iters"] for s in spans
+                                         if s.name == "qcp.cg")
+    assert int(ans["status"][0]) == 1
+    A, b, c = (torch.as_tensor(insts[0][k][None], device=cuda_device)
+               for k in ("A", "b", "c"))
+    cones = cell.config["cones"]
+    r = reference.solve(A, b, c, cones, 1e-9)
+    assert int(r.status[0]) == 1
+    got = reference.judge(A, b, c, cones, ans["x"], ans["y"], ans["s"],
+                          (c * r.x).sum(-1))
+    for name, limit in cell.config["limits"]["single"].items():
+        assert float(got[name][0]) <= limit, (name, float(got[name][0]))
