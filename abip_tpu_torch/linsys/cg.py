@@ -12,7 +12,12 @@ Port of `abip_tpu/linsys/cg.py`, the reference PCG backend
 
 The reference's `lax.while_loop` is a host loop here: the stop test
 `||r|| >= tol` is read from the device once per CG iteration, so the
-iteration count is exactly the reference's.  `pcg_lanes` is the same
+iteration count is exactly the reference's.  `pcg_block` runs
+`PCG_BLOCK` iterations of the same loop with the stop test on the
+device: an iteration runs only while `pcg_running` holds and leaves the
+state as it was once it fails, so a host that reads the test once a
+block stops where the loop would have, with its x and count (the Schur
+PCG's CUDA graphs, `linsys.schur`).  `pcg_lanes` is the same
 loop over a `(B, m)` stack of independent systems, the reference's
 `pcg` under `vmap`: a lane whose residual is below its tolerance (or at
 its iteration cap) is frozen, and the host reads "any lane running"
@@ -28,6 +33,8 @@ CG_BEST_TOL = 1e-9
 CG_MIN_TOL = 1e-1
 # `pcg_lanes`: CG iterations between two host reads of "any lane running"
 _CG_SYNC = 4
+# `pcg_block`: CG iterations of a block
+PCG_BLOCK = 10
 
 
 def _above(x, tol) -> bool:
@@ -36,28 +43,63 @@ def _above(x, tol) -> bool:
         return bool(x >= tol)
 
 
+def pcg_start(G, M, b, x0):
+    """The residual, the first direction and <z, r> at x0."""
+    r = b - G(x0)
+    z = M * r
+    return r, z, (z * r).sum()
+
+
+def _pcg_iteration(G, M, x, r, p, ipzr):
+    """One CG step from (x, r, p, <z, r>), as `pcg` and `pcg_block` take
+    it."""
+    Gp = G(p)
+    alpha = ipzr / (p * Gp).sum()
+    x = x + alpha * p
+    r = r - alpha * Gp
+    z = M * r
+    ipzr_new = (z * r).sum()
+    p = z + (ipzr_new / ipzr) * p
+    return x, r, p, ipzr_new
+
+
 def pcg(G, M, b, x0, tol, max_iters):
     """Jacobi-preconditioned CG: solve G(x) = b to ||r|| < tol.
 
     Mirrors `pcg` (`indirect.c:321-391`).  Returns (x, iterations) with
     the iteration count a Python int."""
     x = x0
-    r = b - G(x)
-    z = M * r
-    p = z
-    ipzr = (z * r).sum()
+    r, p, ipzr = pcg_start(G, M, b, x)
     i = 0
     while i < max_iters and _above(torch.linalg.vector_norm(r), tol):
-        Gp = G(p)
-        alpha = ipzr / (p * Gp).sum()
-        x = x + alpha * p
-        r = r - alpha * Gp
-        z = M * r
-        ipzr_new = (z * r).sum()
-        p = z + (ipzr_new / ipzr) * p
-        ipzr = ipzr_new
+        x, r, p, ipzr = _pcg_iteration(G, M, x, r, p, ipzr)
         i += 1
     return x, i
+
+
+def pcg_running(r, its, tol, cap):
+    """`pcg`'s loop test on the device: its < cap and ||r|| >= tol, a 0-d
+    bool tensor."""
+    return (its < cap) & (torch.linalg.vector_norm(r) >= tol)
+
+
+def pcg_block(G, M, x, r, p, ipzr, its, tol, cap):
+    """PCG_BLOCK iterations of `pcg`'s loop from (x, r, p, <z, r>) after
+    `its` iterations (a 0-d int64 tensor), each applied only while
+    `pcg_running` holds (tol and the cap `cap` are 0-d tensors): once
+    the test fails, x, r, p, <z, r> and `its` stay as they were, and
+    none of the test's inputs moves again, so the block ends where the
+    loop would have.  An iteration that runs does `pcg`'s arithmetic.
+    Returns ((x, r, p, ipzr, its), whether the loop goes on)."""
+    for _ in range(PCG_BLOCK):
+        run = pcg_running(r, its, tol, cap)
+        x_n, r_n, p_n, ipzr_n = _pcg_iteration(G, M, x, r, p, ipzr)
+        x = torch.where(run, x_n, x)
+        r = torch.where(run, r_n, r)
+        p = torch.where(run, p_n, p)
+        ipzr = torch.where(run, ipzr_n, ipzr)
+        its = its + run.to(its.dtype)
+    return (x, r, p, ipzr, its), pcg_running(r, its, tol, cap)
 
 
 def cg_tolerance(rhs_norm, iter_count, cg_rate, dtype):

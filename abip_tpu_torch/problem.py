@@ -23,6 +23,10 @@ class LinearOperator:
     rmatvec: y (m,) -> A.T @ y (n,)
     dense:   optional thunk returning the dense (m, n) matrix, used by the
              direct linsys backend.
+    operands: {name: tensor}, every tensor the products read, or None
+             where the operator does not name them.  An operator built by
+             `over` names them and can be rebuilt over substitutes
+             (`with_operands`), as a CUDA graph's static buffers.
     """
 
     def __init__(
@@ -42,6 +46,40 @@ class LinearOperator:
         # nnz drives the sparsity-ratio heuristics of the barrier schedule
         # (`src/abip-lp/src/abip.c:2104-2115`); dense operators report full.
         self.nnz = int(nnz) if nnz is not None else m * n
+        self.operands = None
+        self._bind = self._dense_name = None
+
+    @classmethod
+    def over(cls, m: int, n: int, operands: dict, bind: Callable,
+             nnz: Optional[int] = None,
+             dense: Optional[str] = None) -> "LinearOperator":
+        """The operator whose products read the tensors `operands`
+        ({name: tensor}) alone: `bind(operands)` makes its (matvec,
+        rmatvec).  `dense` names the operand that is the dense matrix,
+        if one is."""
+        operands = dict(operands)
+        op = cls(m, n, *bind(operands), nnz=nnz,
+                 dense=None if dense is None else lambda: operands[dense])
+        op.operands, op._bind, op._dense_name = operands, bind, dense
+        return op
+
+    def with_operands(self, tensors: dict) -> "LinearOperator":
+        """This operator over `tensors` ({name: tensor}, each of its
+        operands' names, shapes and dtypes) in their place; its other
+        attributes carry over."""
+        if self.operands is None:
+            raise ValueError("the operator does not name its operands")
+        if set(tensors) != set(self.operands) or any(
+                t.shape != self.operands[k].shape
+                or t.dtype != self.operands[k].dtype
+                for k, t in tensors.items()):
+            raise ValueError("substitutes must match the operands' names, "
+                             "shapes and dtypes")
+        op = self.over(self.m, self.n, tensors, self._bind, nnz=self.nnz,
+                       dense=self._dense_name)
+        for k, v in vars(self).items():
+            op.__dict__.setdefault(k, v)
+        return op
 
     @property
     def has_dense(self) -> bool:
@@ -60,8 +98,7 @@ class LinearOperator:
     def from_dense(cls, A: torch.Tensor,
                    nnz: Optional[int] = None) -> "LinearOperator":
         m, n = A.shape
-        return cls(m, n, matvec=lambda x: A @ x, rmatvec=lambda y: A.T @ y,
-                   dense=lambda: A, nnz=nnz)
+        return cls.over(m, n, {"A": A}, _dense_products, nnz=nnz, dense="A")
 
     @classmethod
     def from_scipy_sparse(cls, A, dtype=torch.float64, layout: str = "auto",
@@ -110,6 +147,11 @@ class LinearOperator:
         op.col_norms_sq = torch.as_tensor(np.asarray(sq.sum(axis=0)).ravel(),
                                           dtype=f64, device=device)
         return op
+
+
+def _dense_products(operands):
+    A = operands["A"]
+    return (lambda x: A @ x), (lambda y: A.T @ y)
 
 
 def bcsr_fill_estimate(A) -> float:

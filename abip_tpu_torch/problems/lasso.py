@@ -88,11 +88,34 @@ def lasso_to_conic(X, y, lam: float) -> ConicProblem:
                         recover=_recover(X, y, lam))
 
 
+def _lasso_products(operands):
+    """(matvec, rmatvec) of A_s = D^-1 A E^-1, A = [[1,0,0,0,0],
+    [0,0,I,X,-X]], over the operands X, D and E."""
+    X, D, E = operands["X"], operands["D"], operands["E"]
+    m, n = X.shape
+
+    def matvec(z):
+        z = z / E                       # undo the column scaling
+        r = z[2:2 + m]
+        w = z[2 + m:2 + m + n] - z[2 + m + n:]
+        return torch.cat([z[:1], r + X @ w]) / D
+
+    def rmatvec(u):
+        u = u / D
+        xt = X.T @ u[1:]
+        return torch.cat([u[:1], torch.zeros_like(u[:1]), u[1:], xt,
+                          -xt]) / E
+
+    return matvec, rmatvec
+
+
 def lasso_operator(X, y, lam: float, scaled: bool = True,
                    device=None) -> ConicProblem:
     """Matrix-free variant (`lasso_A_times`, `source/lasso_config.c:99-126`):
     the reformulated matrix is never formed; X is applied twice per
-    product, as a tensor on `device` (default: the CUDA card).
+    product, as a tensor on `device` (default: the CUDA card).  The
+    operator names its operands X, D and E (`LinearOperator.over`), so
+    the Schur PCG's CUDA graphs rebuild it over their own buffers.
 
     Layout: A z = [t1;  r + X w+ - X w-],  z = (t1, t2, r, w+, w-).
 
@@ -128,22 +151,9 @@ def lasso_operator(X, y, lam: float, scaled: bool = True,
     def t(x):
         return torch.as_tensor(x, dtype=torch.float64, device=dev)
 
-    Dt, Et, Xt = t(D), t(E), t(Xnp)
-
-    def matvec(z):
-        z = z / Et                      # undo the column scaling
-        r = z[2:2 + m]
-        w = z[2 + m:2 + m + n] - z[2 + m + n:]
-        return torch.cat([z[:1], r + Xt @ w]) / Dt
-
-    def rmatvec(u):
-        u = u / Dt
-        xt = Xt.T @ u[1:]
-        return torch.cat([u[:1], torch.zeros_like(u[:1]), u[1:], xt,
-                          -xt]) / Et
-
-    op = LinearOperator(p, q, matvec, rmatvec,
-                        nnz=2 * int(np.prod(Xnp.shape)) + m + 1)
+    op = LinearOperator.over(p, q, {"X": t(Xnp), "D": t(D), "E": t(E)},
+                             _lasso_products,
+                             nnz=2 * int(np.prod(Xnp.shape)) + m + 1)
     # Jacobi diagonal of the Schur CG (`init_lasso_precon`,
     # `lasso_config.c:571-587`): the exact column norms of the scaled
     # matrix, from the block structure

@@ -26,9 +26,10 @@ keeps the reference's LP-specialized economies.
 Spans (`utils.profiling`): `qcp.solve` roots a solve and notes its
 `admm_iters` and `cg_iters`; under it `qcp.setup`, the `PhaseTimers`
 phases `qcp.inner_admm` and `qcp.residuals`, `qcp.admm` (one iteration:
-`qcp.project` with the Schur solve, `linsys.schur`'s `qcp.cg`,
-`qcp.cone`, `qcp.check`), `qcp.mu_update` and `qcp.extract`; every
-blocking read is a `qcp.host_read`.
+`qcp.project` with the Schur solve, `linsys.schur`'s `qcp.cg` and, where
+its PCG runs as CUDA graphs, their `qcp.cg_block`s, `qcp.cone`,
+`qcp.check`), `qcp.mu_update` and `qcp.extract`; every blocking read is
+a `qcp.host_read`.
 """
 from __future__ import annotations
 

@@ -24,6 +24,10 @@ The host LP loop replayed as CUDA graphs of 10-iteration blocks against
 its eager loop, bit for bit (the smoke LP, a CSR A through K5, example
 08's `update_problem` ticks), its graphs captured once a variant, and
 beside another thread solving.
+The Schur PCG of the host conic driver replayed as CUDA graphs of
+10-iteration blocks against its eager loop, bit for bit (a matrix-free
+LASSO, a dense A), one graph captured for two solves of one shape on
+different X, and every PCG iteration run in a block.
 The host conic driver (no kernel of its own): `solve_qcp` on the card
 against the port on the CPU, the CLI's file functions on the card, and
 one full-size instance of the benchmark's `lasso_paper` configuration
@@ -598,6 +602,92 @@ def test_host_lp_graph_beside_another_thread(cuda_device):
     with ThreadPoolExecutor(2) as pool:
         together = list(pool.map(one, probs))
     _assert_same_solutions(together, alone)
+
+
+# -- the Schur PCG as CUDA graphs of blocks ------------------------------------
+
+def _card_lasso(seed, m=200, n=1000):
+    """A matrix-free LASSO at a small shape on the card: its conic
+    solution."""
+    from abip_tpu_torch.problems import solve_lasso
+    from benchmarks.generate import lasso_instance
+
+    return solve_lasso(*lasso_instance(m=m, n=n, seed=seed), eps=1e-3,
+                       matrix_free=True)[2]
+
+
+def _card_dense_cg():
+    from abip_tpu_torch import ConeSpec, solve_qcp
+    from abip_tpu_torch.qcp import conic_defaults
+
+    cones = ConeSpec(**chip_smoke.SMALL_SPEC)
+    _, A, b, c, _, _ = randcone("c", 8, cones, 41)
+    return solve_qcp(A, b, c, cones,
+                     settings=conic_defaults(eps=1e-7, linsys="cg"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["lasso", "dense-cg"])
+def test_schur_pcg_graph_matches_eager_loop(cuda_device, monkeypatch, case):
+    """The Schur PCG replayed as CUDA graphs of blocks gives its eager
+    loop's x, y, s bit for bit, with the same ADMM, IPM and PCG counts:
+    on a matrix-free LASSO (`lasso_operator`'s X, D and E in the graph's
+    buffers) and on a dense A (`solve_qcp(linsys="cg")`)."""
+    from abip_tpu_torch.linsys import schur
+
+    fn = (lambda: _card_lasso(5)) if case == "lasso" else _card_dense_cg
+    runs, real = [], schur._PCGGraph._run
+    monkeypatch.setattr(schur._PCGGraph, "_run",
+                        lambda self: runs.append(1) or real(self))
+    graph = fn()
+    with monkeypatch.context() as mp:
+        mp.setattr(schur, "_graph_engages", lambda *a: False)
+        eager = fn()
+    assert runs
+    assert graph.status_name == "Solved"
+    _assert_same_solutions([graph], [eager])
+    assert graph.avg_cg_iters == eager.avg_cg_iters
+
+
+@pytest.mark.cuda
+def test_schur_pcg_graph_captured_once_a_shape(cuda_device, monkeypatch):
+    """Two LASSO solves of one shape on different X capture one graph;
+    the second copies its own X into the graph's buffers and gives that
+    X's eager answer bit for bit."""
+    import collections
+
+    from abip_tpu_torch.linsys import schur
+
+    monkeypatch.setattr(schur, "_GRAPHS", collections.OrderedDict())
+    before = schur._PCGGraph.captures
+    first, second = _card_lasso(6), _card_lasso(7)
+    assert schur._PCGGraph.captures - before == 1
+    assert len(schur._GRAPHS) == 1
+    assert first.status_name == second.status_name == "Solved"
+    monkeypatch.setattr(schur, "_graph_engages", lambda *a: False)
+    _assert_same_solutions([second], [_card_lasso(7)])
+
+
+@pytest.mark.cuda
+def test_schur_pcg_graph_runs_every_iteration(cuda_device):
+    """Under the profiler, the `iters` noted on a LASSO solve's
+    `qcp.cg_block` spans add up to its `qcp.solve` root's `cg_iters`, the
+    sum of its `qcp.cg` spans' iterations."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from abip_tpu_torch.utils import profiling
+
+    _card_lasso(8)                      # captures
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _card_lasso(8)
+    spans = profiling.spans()
+    profiling.clear()
+    (root,) = [s for s in spans if s.parent_id is None]
+    blocks = [s for s in spans if s.name == "qcp.cg_block"]
+    assert root.name == "qcp.solve" and blocks
+    assert sum(s.attrs["iters"] for s in blocks) == root.attrs["cg_iters"] \
+        == sum(s.attrs["iters"] for s in spans if s.name == "qcp.cg") > 0
 
 
 # -- the host conic driver ----------------------------------------------------

@@ -264,7 +264,10 @@ def test_cell_at_its_tiny_shape(trace):
     """`portbench.harness.run` of the cell on the CPU at its
     configuration's tiny shape, in a process of its own (a run refuses a
     process that holds JAX): correct, nothing failed, and every metric
-    of the cell but the device's reported above 0."""
+    of the cell but the device's reported above 0, but for the share of
+    PCG iterations run in CUDA graphs' blocks, which run only on a card
+    and read 0 here."""
+    card_only = {"qcp.cg_block_iter_share"}
     proc = subprocess.run(
         [sys.executable, "-c", RUN, CELL, str(trace)], cwd=ROOT,
         capture_output=True, text=True, timeout=600)
@@ -273,10 +276,10 @@ def test_cell_at_its_tiny_shape(trace):
     assert line["correct"] is True and line["failed"] == 0
     assert line["attempted"] >= 1
     assert sorted(line["metrics"]) == line["wanted"]
-    assert line["wanted"] and all(v["value"] > 0
-                                  for v in line["metrics"].values())
+    assert line["wanted"] and all((v["value"] > 0) == (k not in card_only)
+                                  for k, v in line["metrics"].items())
     if trace:
         assert {m for m in line["wanted"] if m.startswith("qcp.")} == {
             "qcp.admm_iters_per_s", "qcp.admm_iters_per_solve",
             "qcp.cg_iters_per_admm", "qcp.host_reads_per_admm",
-            "qcp.host_wait_share", "qcp.cg_share"}
+            "qcp.host_wait_share", "qcp.cg_share"} | card_only
