@@ -24,8 +24,9 @@ S = Q + R_x + A^T R_y^-1 A; when H = Q + R_x is diagonal the m x m dual
     with an operator that names its operands, unsharded and with no Q,
     its PCG runs as blocks of `cg.PCG_BLOCK` masked iterations
     (`cg.pcg_block`), each block a CUDA graph captured once a shape and
-    replayed, with one host read a block (`_PCGGraph`); elsewhere the
-    eager `cg.pcg` runs, reading its stop test once an iteration.
+    replayed, with one host read a block (`_PCGBlock`, on
+    `utils.graphs`); elsewhere the eager `cg.pcg` runs, reading its stop
+    test once an iteration.
 
 The last two solve one system on 1-D vectors, as the reference does.
 Every `solve` returns `(z_y, z_x, iterations)` with the iteration count
@@ -33,17 +34,16 @@ a Python int.
 """
 from __future__ import annotations
 
-import collections
+import contextlib
 import copy
-import threading
-import weakref
 
 import numpy as np
 import torch
 
 from ..device import ieee_f32
 from ..ops.admm_delta import _mv
-from ..utils.profiling import annotate, host_read
+from ..utils import graphs
+from ..utils.profiling import annotate
 from .cg import pcg, pcg_block, pcg_start
 
 f32 = torch.float32
@@ -333,7 +333,7 @@ class CGSchurSolver:
     reference's `qcp_pcg`), on 1-D vectors: `linsys.cg.pcg` runs the
     same recurrence and reads the stop test once per CG iteration, so
     the iteration counts are the reference's.  Where `_graph_engages`,
-    the masked blocks of `_PCGGraph` run it instead, to the same x and
+    the masked blocks of `_PCGBlock` run it instead, to the same x and
     count."""
 
     def __init__(self, A_op, Q_op, rho_y_vec, rho_x_vec, diag_S,
@@ -382,14 +382,12 @@ class CGSchurSolver:
             tol = torch.clamp(1e-5 * norm_p / (it + 1.0) ** 2, min=1e-9)
         rhs = w_x + self.A_op.rmatvec(self.ry_inv * w_y)
         x0 = warm_start if warm_start is not None else torch.zeros_like(w_x)
-        graph = _pcg_graph(self, rhs)
-        if graph is None:
-            z_x, iters = pcg(self._S, self.M, rhs, x0, tol, self.max_iters)
-        else:
-            try:
+        with _pcg_graph(self, rhs) as graph:
+            if graph is None:
+                z_x, iters = pcg(self._S, self.M, rhs, x0, tol,
+                                 self.max_iters)
+            else:
                 z_x, iters = graph.solve(self, rhs, x0, tol)
-            finally:
-                graph.lock.release()
         z_y = self.ry_inv * (w_y - self.A_op.matvec(z_x))
         return z_y, z_x, iters
 
@@ -402,21 +400,16 @@ def _graph_operands(solver: CGSchurSolver):
                ("M", solver.M)])
 
 
-class _PCGGraph:
+class _PCGBlock(graphs.BlockGraph):
     """The Schur PCG's masked block (`cg.pcg_block`) of one shape on
     static buffers: the S-apply's tensors (`_graph_operands`), the state
     (x, r, p, <z, r>, its), tol, the cap and the flag (whether the loop
-    goes on, its) that the host reads after a block.  On a CUDA card the
-    block is captured as a CUDA graph once, after one run uncaptured,
-    and replayed; elsewhere it runs uncaptured each time.  `lock` is
-    held by the solve that uses it."""
-
-    captures = 0            # graphs captured by this process
+    goes on, its) that the host reads after a block."""
 
     def __init__(self, solver: CGSchurSolver, rhs):
-        tensors = _graph_operands(solver)
-        self.static = {name: torch.empty_like(t) for name, t in tensors}
-        self.loaded = {}
+        dev = rhs.device
+        super().__init__(torch.zeros((2,), dtype=torch.int64, device=dev),
+                         _graph_operands(solver))
         # the solver over the static buffers: its S-apply is the block's
         self.solver = copy.copy(solver)
         self.solver.A_op = solver.A_op.with_operands({
@@ -424,15 +417,11 @@ class _PCGGraph:
         self.solver.ry_inv = self.static["ry_inv"]
         self.solver.rho_x = self.static["rho_x"]
         self.solver.M = self.static["M"]
-        dev = rhs.device
         self.x, self.r, self.p = (torch.empty_like(rhs) for _ in range(3))
         self.ipzr, self.tol = (torch.zeros((), dtype=rhs.dtype, device=dev)
                                for _ in range(2))
         self.its, self.cap = (torch.zeros((), dtype=torch.int64, device=dev)
                               for _ in range(2))
-        self.flag = torch.zeros((2,), dtype=torch.int64, device=dev)
-        self.graph = None
-        self.lock = threading.Lock()
 
     def solve(self, solver: CGSchurSolver, rhs, x0, tol):
         """`pcg(solver._S, solver.M, rhs, x0, tol, solver.max_iters)` as
@@ -442,7 +431,7 @@ class _PCGGraph:
         go, done = True, 0
         while go:
             with annotate("qcp.cg_block") as span:
-                go, its = self._run()
+                go, its = self.run()
                 span.note(iters=its - done)
             done = its
         return self.x.clone(), done
@@ -450,11 +439,7 @@ class _PCGGraph:
     def _load(self, solver, rhs, x0, tol):
         """Copy in the S-apply's tensors that are not the ones loaded
         last, then the start state at x0, tol and the cap."""
-        for name, t in _graph_operands(solver):
-            ref = self.loaded.get(name)
-            if ref is None or ref() is not t:
-                self.static[name].copy_(t)
-                self.loaded[name] = weakref.ref(t)
+        self.load_operands(_graph_operands(solver))
         r, p, ipzr = pcg_start(solver._S, solver.M, rhs, x0)
         for dst, src in ((self.x, x0), (self.r, r), (self.p, p),
                          (self.ipzr, ipzr), (self.tol, tol)):
@@ -462,7 +447,7 @@ class _PCGGraph:
         self.its.zero_()
         self.cap.fill_(solver.max_iters)
 
-    def _body(self):
+    def body(self):
         state = (self.x, self.r, self.p, self.ipzr, self.its)
         new, go = pcg_block(self.solver._S, self.solver.M, *state, self.tol,
                             self.cap)
@@ -470,43 +455,8 @@ class _PCGGraph:
             dst.copy_(src)
         self.flag.copy_(torch.stack([go.long(), new[-1]]))
 
-    def _run(self):
-        """One block on the loaded state, then its one blocking read:
-        (goes on, iterations so far)."""
-        if self.graph is not None:
-            self.graph.replay()
-        elif self.flag.is_cuda:
-            self._capture()
-        else:
-            self._body()
-        with host_read():
-            go, its = self.flag.tolist()
-        return bool(go), its
 
-    def _capture(self):
-        """Run the block once uncaptured on a side stream (the libraries
-        set up their handles and workspaces there), then capture it on
-        that stream; not through `torch.cuda.graph`, which first
-        synchronizes the card, collects garbage and empties the
-        allocator's cache (as `lp._BlockGraph._capture`)."""
-        side = torch.cuda.Stream(self.flag.device)
-        side.wait_stream(torch.cuda.current_stream())
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            self._body()
-            graph.capture_begin(capture_error_mode="thread_local")
-            try:
-                self._body()
-            finally:
-                graph.capture_end()
-            _PCGGraph.captures += 1
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = graph
-
-
-_GRAPHS_KEPT = 4        # PCG block graphs a process keeps, least recent out
-_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
-_GRAPHS_LOCK = threading.Lock()
+_GRAPHS = graphs.GraphCache(kept=4)     # PCG block graphs of the process
 
 
 def _graph_engages(solver: CGSchurSolver, rhs) -> bool:
@@ -519,21 +469,12 @@ def _graph_engages(solver: CGSchurSolver, rhs) -> bool:
 
 
 def _pcg_graph(solver: CGSchurSolver, rhs):
-    """The block graph of this shape with its lock taken, or None where
-    the solve runs the eager `pcg`: where the graph does not engage, or
-    another thread holds it."""
+    """A context holding the block graph of this shape, its lock taken,
+    or None where the solve runs the eager `pcg`: where the graph does
+    not engage, or another thread holds it."""
     if not _graph_engages(solver, rhs):
-        return None
+        return contextlib.nullcontext()
     key = (str(rhs.device), rhs.dtype, tuple(rhs.shape), solver.A_op._bind,
            tuple((n, tuple(t.shape), t.dtype)
                  for n, t in _graph_operands(solver)))
-    with _GRAPHS_LOCK:
-        graph = _GRAPHS.get(key)
-        if graph is None:
-            graph = _GRAPHS[key] = _PCGGraph(solver, rhs)
-            while len(_GRAPHS) > _GRAPHS_KEPT:
-                _GRAPHS.popitem(last=False)
-        _GRAPHS.move_to_end(key)
-        if not graph.lock.acquire(blocking=False):
-            return None
-    return graph
+    return _GRAPHS.take(key, lambda: _PCGBlock(solver, rhs))

@@ -26,10 +26,9 @@ kernel K5 (`csrc/bcsr_spmv.cu`).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
-import threading
 import time
-import weakref
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -44,6 +43,7 @@ from .linsys import make_solver  # noqa: F401  (public seam, as abip_tpu.lp)
 from .problem import LinearOperator
 from .scaling import ScalingData, equilibrate, equilibrate_sparse, normalize_bc
 from .settings import Settings, Status
+from .utils import graphs
 from .utils.profiling import annotate, host_read
 
 EPS_TOL = hsd.EPS_TOL
@@ -392,39 +392,25 @@ def _with_operands(ops: LPOperands, tensors) -> LPOperands:
     return ops._replace(**top)
 
 
-class _BlockGraph:
-    """The masked block of one shape and variant, on static buffers: the
+class _AdmmBlock(graphs.BlockGraph):
+    """The masked block of one shape and variant on static buffers: the
     operands, the iterate, the stage's constants and the flag (whether
-    the loop goes on, j, k) that the host reads after a block.  On a
-    CUDA card the block is captured as a CUDA graph once, after one run
-    uncaptured, and replayed; elsewhere it runs uncaptured each time.
-    `lock` is held by the stage that uses it."""
-
-    captures = 0            # graphs captured by this process
+    the loop goes on, j, k) that the host reads after a block."""
 
     def __init__(self, ops: LPOperands, it: _Iterate, st: _Stage,
                  stgs: Settings, final_check: bool):
-        tensors, _ = _operand_leaves(ops)
-        self.static = {name: torch.empty_like(t) for name, t in tensors}
+        super().__init__(torch.zeros((3,), dtype=torch.int64,
+                                     device=ops.h.device),
+                         _operand_leaves(ops)[0])
         self.ops = _with_operands(ops, self.static)
-        self.loaded = {}
         self.it = _from_leaves([torch.empty_like(x) for x in _leaves(it)])
         self.st = _Stage(*(torch.empty_like(x) for x in st))
-        self.flag = torch.zeros((3,), dtype=torch.int64, device=ops.h.device)
         self.stgs, self.final_check = stgs, final_check
-        self.graph = None
-        self.k5 = 0         # K5 launches of one replay
-        self.lock = threading.Lock()
 
     def load(self, ops: LPOperands, it: _Iterate, st: _Stage):
         """Copy in the operands that are not the ones loaded last, the
         iterate and the stage's constants."""
-        tensors, _ = _operand_leaves(ops)
-        for name, t in tensors:
-            ref = self.loaded.get(name)
-            if ref is None or ref() is not t:
-                self.static[name].copy_(t)
-                self.loaded[name] = weakref.ref(t)
+        self.load_operands(_operand_leaves(ops)[0])
         for dst, src in zip(_leaves(self.it) + list(self.st),
                             _leaves(it) + list(st)):
             dst.copy_(src)
@@ -432,60 +418,15 @@ class _BlockGraph:
     def unload(self) -> _Iterate:
         return _from_leaves([x.clone() for x in _leaves(self.it)])
 
-    def _body(self):
+    def body(self):
         it, go = _admm_block(self.ops, self.it, self.st, stgs=self.stgs,
                              final_check=self.final_check)
         for dst, src in zip(_leaves(self.it), _leaves(it)):
             dst.copy_(src)
         self.flag.copy_(torch.stack([go.long(), it.j, it.k]))
 
-    def run(self):
-        """One block on the loaded state, then its one blocking read:
-        (goes on, j, k)."""
-        if self.graph is not None:
-            self.graph.replay()
-            if self.k5:
-                from .ops.spmv import bcsr_matvec_cuda
-                bcsr_matvec_cuda.launches += self.k5
-        elif self.flag.is_cuda:
-            self._capture()
-        else:
-            self._body()
-        with host_read():
-            go, j, k = self.flag.tolist()
-        return bool(go), j, k
 
-    def _capture(self):
-        """Run the block once uncaptured on a side stream (the libraries
-        set up their handles and workspaces there), then capture it on
-        that stream.  Not through `torch.cuda.graph`, which first
-        synchronizes the card, collects garbage and empties the
-        allocator's cache: the capture needs none of them."""
-        from .ops.spmv import bcsr_matvec_cuda
-
-        side = torch.cuda.Stream(self.flag.device)
-        side.wait_stream(torch.cuda.current_stream())
-        graph = torch.cuda.CUDAGraph()
-        tally = bcsr_matvec_cuda.captured
-        with torch.cuda.stream(side):
-            self._body()
-            with _CAPTURE_LOCK:
-                tally.n = 0
-                graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self._body()
-                finally:
-                    graph.capture_end()
-                _BlockGraph.captures += 1
-        torch.cuda.current_stream().wait_stream(side)
-        self.k5 = tally.n
-        self.graph = graph
-
-
-_GRAPHS_KEPT = 4        # block graphs a process keeps, least recent out
-_GRAPHS: "collections.OrderedDict" = collections.OrderedDict()
-_GRAPHS_LOCK = threading.Lock()
-_CAPTURE_LOCK = threading.Lock()
+_GRAPHS = graphs.GraphCache(kept=4)     # block graphs of the process
 
 
 def _graph_engages(ops: LPOperands, stgs: Settings) -> bool:
@@ -498,28 +439,19 @@ def _graph_engages(ops: LPOperands, stgs: Settings) -> bool:
 
 def _block_graph(ops: LPOperands, it: _Iterate, st: _Stage,
                  stgs: Settings, final_check: bool):
-    """The block graph of this shape and variant with its lock taken, or
-    None where the stage runs the eager loop: where the graph does not
-    engage, or another thread holds it."""
+    """A context holding the block graph of this shape and variant, its
+    lock taken, or None where the stage runs the eager loop: where the
+    graph does not engage, or another thread holds it."""
     if not _graph_engages(ops, stgs):
-        return None
+        return contextlib.nullcontext()
     tensors, rest = _operand_leaves(ops)
     key = (str(ops.h.device),
            tuple((n, tuple(t.shape), t.dtype) for n, t in tensors),
            tuple(rest), tuple(x.dtype for x in _leaves(it)),
            stgs.alpha, stgs.rho_y, stgs.eps, stgs.pfeasopt, stgs.half_update,
            final_check)
-    with _GRAPHS_LOCK:
-        graph = _GRAPHS.get(key)
-        if graph is None:
-            graph = _GRAPHS[key] = _BlockGraph(ops, it, st, stgs,
-                                               final_check)
-            while len(_GRAPHS) > _GRAPHS_KEPT:
-                _GRAPHS.popitem(last=False)
-        _GRAPHS.move_to_end(key)
-        if not graph.lock.acquire(blocking=False):
-            return None
-    return graph
+    return _GRAPHS.take(key, lambda: _AdmmBlock(ops, it, st, stgs,
+                                                final_check))
 
 
 def _running(it: _Iterate, thresh) -> bool:
@@ -553,9 +485,8 @@ def _run_inner_k(ops: LPOperands, state: InnerState, mu, beta, gamma,
     j, k, cg_iters = state.j, state.k, state.cg_iters
     P = stgs.qres_period
 
-    graph = _block_graph(ops, it, st, stgs, final_check)
-    inside = False          # whether the graph's buffers hold the iterate
-    try:
+    with _block_graph(ops, it, st, stgs, final_check) as graph:
+        inside = False      # whether the graph's buffers hold the iterate
         go = _running(it, st.thresh)
         while go and j < inner_stopper and k < max_iters:
             if (graph is not None and j % BLOCK == 0
@@ -583,9 +514,6 @@ def _run_inner_k(ops: LPOperands, state: InnerState, mu, beta, gamma,
                     go = _running(it, st.thresh)
         if inside:
             it = graph.unload()
-    finally:
-        if graph is not None:
-            graph.lock.release()
     if stgs.half_update:
         # On a qres-triggered break only, lift strictly negative duals to
         # 1e-6 (`abip.c:2175-2185`); small positives and the y-block are

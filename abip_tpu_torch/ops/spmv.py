@@ -19,10 +19,11 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import threading
 
 import numpy as np
 import torch
+
+from ..utils.graphs import count_launch
 
 BR = 8     # tile rows
 BC = 128   # tile columns
@@ -215,18 +216,11 @@ def bcsr_matvec_cuda(A: BCSRMatrix, x):
     if err:
         raise RuntimeError("bcsr_spmv kernel launch failed: "
                            + lib.abip_cuda_error_string(err).decode())
-    if torch.cuda.is_current_stream_capturing():
-        tally = bcsr_matvec_cuda.captured
-        tally.n = getattr(tally, "n", 0) + 1
-    else:
-        bcsr_matvec_cuda.launches += 1
+    count_launch(bcsr_matvec_cuda)
     return y
 
 
 bcsr_matvec_cuda.launches = 0
-# per thread, `.n`: the launches its capture of a CUDA graph recorded, which
-# run (and count) only at the graph's replays
-bcsr_matvec_cuda.captured = threading.local()
 
 
 def bcsr_matvec(A: BCSRMatrix, x):

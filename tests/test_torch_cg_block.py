@@ -2,11 +2,12 @@
 
 On a CUDA card `linsys.schur.CGSchurSolver` runs its PCG as blocks of
 `cg.PCG_BLOCK` masked iterations (`cg.pcg_block`), each block a CUDA
-graph over static buffers (`schur._PCGGraph`) whose operator is rebuilt
-over those buffers (`LinearOperator.with_operands`).  Here the block
-runs uncaptured and must give `cg.pcg`'s x and iteration count bit for
-bit, at every kind of stop; whole solves run as blocks (the engagement
-made to say yes) give the eager solves' answers bit for bit.
+graph over static buffers (`schur._PCGBlock` on `utils.graphs`) whose
+operator is rebuilt over those buffers (`LinearOperator.with_operands`).
+Here the block runs uncaptured and must give `cg.pcg`'s x and iteration
+count bit for bit, at every kind of stop; whole solves run as blocks
+(the engagement made to say yes) give the eager solves' answers bit for
+bit.
 """
 import threading
 
@@ -24,7 +25,7 @@ from abip_tpu_torch.problems import lasso_operator, solve_lasso  # noqa: E402
 from abip_tpu_torch.problems.lasso import _lasso_products  # noqa: E402
 from abip_tpu_torch.qcp import conic_defaults, solve_qcp  # noqa: E402
 from abip_tpu_torch.tools.generate import randcone  # noqa: E402
-from abip_tpu_torch.utils import profiling  # noqa: E402
+from abip_tpu_torch.utils import graphs, profiling  # noqa: E402
 from benchmarks.generate import lasso_instance  # noqa: E402
 
 f64 = torch.float64
@@ -248,28 +249,32 @@ def test_a_held_graph_leaves_the_solve_eager(monkeypatch):
     """A second solve of the shape while another holds its graph runs
     eagerly, with the same answer; the process keeps at most four
     graphs, least recent out."""
-    import collections
-
-    monkeypatch.setattr(schur, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(schur, "_GRAPHS", graphs.GraphCache(
+        schur._GRAPHS.kept))
     monkeypatch.setattr(schur, "_graph_engages", lambda *a: True)
     solver = _solver("named")
     rhs = torch.ones(solver.A_op.n, dtype=f64)
-    graph = schur._pcg_graph(solver, rhs)
-    assert graph is not None and graph.lock.locked()
     out = []
-    worker = threading.Thread(target=lambda: out.append(
-        schur._pcg_graph(solver, rhs)))
-    worker.start()
-    worker.join()
-    assert out == [None]
-    held = solver.solve(rhs[:solver.A_op.m], rhs)
-    graph.lock.release()
+
+    def take_in_thread():
+        with schur._pcg_graph(solver, rhs) as other:
+            out.append(other)
+
+    with schur._pcg_graph(solver, rhs) as graph:
+        assert graph is not None and graph.lock.locked()
+        worker = threading.Thread(target=take_in_thread)
+        worker.start()
+        worker.join()
+        assert out == [None]
+        held = solver.solve(rhs[:solver.A_op.m], rhs)
+    assert not graph.lock.locked()
     free = solver.solve(rhs[:solver.A_op.m], rhs)
     assert held[2] == free[2]
     assert all(torch.equal(a, b) for a, b in zip(held[:2], free[:2]))
     for n in range(2, 8):
-        schur._pcg_graph(solver, torch.ones(n, dtype=f64)).lock.release()
-    assert len(schur._GRAPHS) == schur._GRAPHS_KEPT
+        with schur._pcg_graph(solver, torch.ones(n, dtype=f64)):
+            pass
+    assert len(schur._GRAPHS) == schur._GRAPHS.kept
 
 
 def test_threads_share_one_pcg_graph(monkeypatch):
@@ -277,11 +282,11 @@ def test_threads_share_one_pcg_graph(monkeypatch):
     the engagement made to say yes and a short switch interval: a PCG
     solve that finds the graph's buffers held by another runs the eager
     loop, and every thread gets the answer it gets alone, bit for bit."""
-    import collections
     import sys
     import time
 
-    monkeypatch.setattr(schur, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(schur, "_GRAPHS", graphs.GraphCache(
+        schur._GRAPHS.kept))
     monkeypatch.setattr(schur, "_graph_engages", lambda *a: True)
     probs = [lasso_instance(m=10, n=40, seed=50 + i) for i in range(6)]
 

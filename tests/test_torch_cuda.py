@@ -464,8 +464,8 @@ def _host_lp_runs(monkeypatch, fn):
     (graph result, eager result, blocks run)."""
     from abip_tpu_torch import lp
 
-    runs, real_run = [], lp._BlockGraph.run
-    monkeypatch.setattr(lp._BlockGraph, "run",
+    runs, real_run = [], lp._AdmmBlock.run
+    monkeypatch.setattr(lp._AdmmBlock, "run",
                         lambda self: runs.append(1) or real_run(self))
     graph = fn()
     with monkeypatch.context() as mp:
@@ -546,16 +546,15 @@ def test_host_lp_graph_captures_each_variant_once(cuda_device, monkeypatch):
     """Seven solves of one shape capture two graphs, the block without
     and with the final check, and reuse them, each solve copying its
     own operands in."""
-    import collections
-
     from abip_tpu_torch import lp, solve_lp
+    from abip_tpu_torch.utils import graphs
     from bench import reference_smoke_lp
 
-    monkeypatch.setattr(lp, "_GRAPHS", collections.OrderedDict())
-    before = lp._BlockGraph.captures
+    monkeypatch.setattr(lp, "_GRAPHS", graphs.GraphCache(lp._GRAPHS.kept))
+    before = graphs.BlockGraph.captures
     sols = [solve_lp(*reference_smoke_lp(m=50, n_rand=1950, seed=20 + i),
                      eps=1e-6, device=cuda_device) for i in range(7)]
-    assert lp._BlockGraph.captures - before == 2
+    assert graphs.BlockGraph.captures - before == 2
     assert len(lp._GRAPHS) == 2
     assert all(s.status_name == "Solved" for s in sols)
 
@@ -636,8 +635,8 @@ def test_schur_pcg_graph_matches_eager_loop(cuda_device, monkeypatch, case):
     from abip_tpu_torch.linsys import schur
 
     fn = (lambda: _card_lasso(5)) if case == "lasso" else _card_dense_cg
-    runs, real = [], schur._PCGGraph._run
-    monkeypatch.setattr(schur._PCGGraph, "_run",
+    runs, real = [], schur._PCGBlock.run
+    monkeypatch.setattr(schur._PCGBlock, "run",
                         lambda self: runs.append(1) or real(self))
     graph = fn()
     with monkeypatch.context() as mp:
@@ -654,14 +653,14 @@ def test_schur_pcg_graph_captured_once_a_shape(cuda_device, monkeypatch):
     """Two LASSO solves of one shape on different X capture one graph;
     the second copies its own X into the graph's buffers and gives that
     X's eager answer bit for bit."""
-    import collections
-
     from abip_tpu_torch.linsys import schur
+    from abip_tpu_torch.utils import graphs
 
-    monkeypatch.setattr(schur, "_GRAPHS", collections.OrderedDict())
-    before = schur._PCGGraph.captures
+    monkeypatch.setattr(schur, "_GRAPHS", graphs.GraphCache(
+        schur._GRAPHS.kept))
+    before = graphs.BlockGraph.captures
     first, second = _card_lasso(6), _card_lasso(7)
-    assert schur._PCGGraph.captures - before == 1
+    assert graphs.BlockGraph.captures - before == 1
     assert len(schur._GRAPHS) == 1
     assert first.status_name == second.status_name == "Solved"
     monkeypatch.setattr(schur, "_graph_engages", lambda *a: False)

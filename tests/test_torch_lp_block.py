@@ -10,7 +10,6 @@ case names the situation it holds the block to and asserts that the
 eager solve meets it.  PCG and a sharded workspace keep the eager loop:
 their solves record no `lp.admm_block` span.
 """
-import collections
 import sys
 import threading
 import time
@@ -24,7 +23,7 @@ torch.set_num_threads(1)
 from abip_tpu_torch import LPWorkspace, Settings, lp, solve_lp  # noqa: E402
 from abip_tpu_torch.hsd import LPResiduals  # noqa: E402
 from abip_tpu_torch.tools import generate  # noqa: E402
-from abip_tpu_torch.utils import profiling  # noqa: E402
+from abip_tpu_torch.utils import graphs, profiling  # noqa: E402
 from bench import reference_smoke_lp  # noqa: E402
 
 
@@ -120,9 +119,9 @@ def test_block_leaves_the_eager_loops_state(monkeypatch, case):
     assert any(situation(_facts(args, out)) for args, _, out in stages)
 
     runs, reads = [], []
-    real_run, real_read = lp._BlockGraph.run, lp._running
+    real_run, real_read = lp._AdmmBlock.run, lp._running
     monkeypatch.setattr(lp, "_on_card", lambda ops: True)
-    monkeypatch.setattr(lp._BlockGraph, "run",
+    monkeypatch.setattr(lp._AdmmBlock, "run",
                         lambda self: runs.append(1) or real_run(self))
     monkeypatch.setattr(lp, "_running",
                         lambda *a: reads.append(1) or real_read(*a))
@@ -143,7 +142,7 @@ def test_threads_share_one_block_graph(monkeypatch):
     block's buffers held by another runs the eager loop, and every
     thread gets the answer it gets alone, bit for bit."""
     monkeypatch.setattr(lp, "_on_card", lambda ops: True)
-    monkeypatch.setattr(lp, "_GRAPHS", collections.OrderedDict())
+    monkeypatch.setattr(lp, "_GRAPHS", graphs.GraphCache(lp._GRAPHS.kept))
     probs = [reference_smoke_lp(m=10, n_rand=60, seed=30 + i)
              for i in range(8)]
     alone = [solve_lp(*p, eps=1e-4, device="cpu") for p in probs]
