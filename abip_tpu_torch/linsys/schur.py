@@ -25,8 +25,11 @@ S = Q + R_x + A^T R_y^-1 A; when H = Q + R_x is diagonal the m x m dual
     its PCG runs as blocks of `cg.PCG_BLOCK` masked iterations
     (`cg.pcg_block`), each block a CUDA graph captured once a shape and
     replayed, with one host read a block (`_PCGBlock`, on
-    `utils.graphs`); elsewhere the eager `cg.pcg` runs, reading its stop
-    test once an iteration.
+    `utils.graphs`); on an operator that carries its iteration as
+    kernels (`pcg_iteration`: `problems.lasso_operator`'s, in float64)
+    each iteration of the block is that instead (`_FusedPCGBlock`);
+    elsewhere the eager `cg.pcg` runs, reading its stop test once an
+    iteration.
 
 The last two solve one system on 1-D vectors, as the reference does.
 Every `solve` returns `(z_y, z_x, iterations)` with the iteration count
@@ -44,7 +47,7 @@ from ..device import ieee_f32
 from ..ops.admm_delta import _mv
 from ..utils import graphs
 from ..utils.profiling import annotate
-from .cg import pcg, pcg_block, pcg_start
+from .cg import PCG_BLOCK, pcg, pcg_block, pcg_running, pcg_start
 
 f32 = torch.float32
 
@@ -406,6 +409,8 @@ class _PCGBlock(graphs.BlockGraph):
     (x, r, p, <z, r>, its), tol, the cap and the flag (whether the loop
     goes on, its) that the host reads after a block."""
 
+    fused = False           # whether an iteration is the operator's kernels
+
     def __init__(self, solver: CGSchurSolver, rhs):
         dev = rhs.device
         super().__init__(torch.zeros((2,), dtype=torch.int64, device=dev),
@@ -426,13 +431,15 @@ class _PCGBlock(graphs.BlockGraph):
     def solve(self, solver: CGSchurSolver, rhs, x0, tol):
         """`pcg(solver._S, solver.M, rhs, x0, tol, solver.max_iters)` as
         blocks, each the span `qcp.cg_block` noting the iterations it
-        ran: (x, iterations)."""
+        ran, and of them those it ran through the operator's kernels
+        (`fused_iters`): (x, iterations)."""
         self._load(solver, rhs, x0, tol)
         go, done = True, 0
         while go:
             with annotate("qcp.cg_block") as span:
                 go, its = self.run()
-                span.note(iters=its - done)
+                span.note(iters=its - done,
+                          fused_iters=its - done if self.fused else 0)
             done = its
         return self.x.clone(), done
 
@@ -456,6 +463,36 @@ class _PCGBlock(graphs.BlockGraph):
         self.flag.copy_(torch.stack([go.long(), new[-1]]))
 
 
+class _FusedPCGBlock(_PCGBlock):
+    """`_PCGBlock` on an operator that carries its PCG iteration as
+    kernels (`pcg_iteration`, such as `ops.lasso_pcg.Iteration` on
+    `problems.lasso_operator`'s products): one made over the block's
+    static operands runs each iteration, keeping the loop's running flag
+    and count in `flag` and leaving a stopped loop as it was."""
+
+    fused = True
+
+    def __init__(self, solver: CGSchurSolver, rhs):
+        super().__init__(solver, rhs)
+        op = self.solver.A_op
+        self.step = op.pcg_iteration(op.operands)
+
+    def _load(self, solver, rhs, x0, tol):
+        """`_PCGBlock._load`, then the iteration's start and the flag:
+        whether the loop runs at all, and the count 0."""
+        super()._load(solver, rhs, x0, tol)
+        self.step.start(self.p)
+        self.flag.copy_(torch.stack([
+            pcg_running(self.r, self.its, self.tol, self.cap).long(),
+            self.its]))
+
+    def body(self):
+        s = self.solver
+        for _ in range(PCG_BLOCK):
+            self.step(s.ry_inv, s.rho_x, s.M, self.tol, self.cap, self.x,
+                      self.r, self.p, self.ipzr, self.flag)
+
+
 _GRAPHS = graphs.GraphCache(kept=4)     # PCG block graphs of the process
 
 
@@ -468,13 +505,24 @@ def _graph_engages(solver: CGSchurSolver, rhs) -> bool:
             and getattr(op, "normal", None) is None and solver.Q_op is None)
 
 
+def _fused_engages(solver: CGSchurSolver, rhs) -> bool:
+    """Whether a block's iterations are the operator's kernels: where the
+    graph engages, on a CUDA card, in float64, over an operator that
+    carries them (`pcg_iteration`) at a shape they hold."""
+    step = getattr(solver.A_op, "pcg_iteration", None)
+    return (_graph_engages(solver, rhs) and rhs.is_cuda
+            and rhs.dtype == torch.float64 and step is not None
+            and step.holds(solver.A_op.operands))
+
+
 def _pcg_graph(solver: CGSchurSolver, rhs):
     """A context holding the block graph of this shape, its lock taken,
     or None where the solve runs the eager `pcg`: where the graph does
     not engage, or another thread holds it."""
     if not _graph_engages(solver, rhs):
         return contextlib.nullcontext()
+    block = _FusedPCGBlock if _fused_engages(solver, rhs) else _PCGBlock
     key = (str(rhs.device), rhs.dtype, tuple(rhs.shape), solver.A_op._bind,
            tuple((n, tuple(t.shape), t.dtype)
-                 for n, t in _graph_operands(solver)))
-    return _GRAPHS.take(key, lambda: _PCGBlock(solver, rhs))
+                 for n, t in _graph_operands(solver)), block.fused)
+    return _GRAPHS.take(key, lambda: block(solver, rhs))

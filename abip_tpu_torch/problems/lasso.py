@@ -115,7 +115,9 @@ def lasso_operator(X, y, lam: float, scaled: bool = True,
     the reformulated matrix is never formed; X is applied twice per
     product, as a tensor on `device` (default: the CUDA card).  The
     operator names its operands X, D and E (`LinearOperator.over`), so
-    the Schur PCG's CUDA graphs rebuild it over their own buffers.
+    the Schur PCG's CUDA graphs rebuild it over their own buffers, and
+    carries that PCG's iteration as two kernels (`pcg_iteration`,
+    `ops.lasso_pcg.Iteration`).
 
     Layout: A z = [t1;  r + X w+ - X w-],  z = (t1, t2, r, w+, w-).
 
@@ -126,6 +128,7 @@ def lasso_operator(X, y, lam: float, scaled: bool = True,
     as in the reference's app configs); `unscale` maps a solution to
     the units of `lasso_to_conic`'s embedding, which `recover` reads."""
     from ..linsys.schur import LASSO_PCG_LADDER
+    from ..ops.lasso_pcg import Iteration
     from ..problem import LinearOperator
 
     dev = resolve_device(device)
@@ -154,6 +157,9 @@ def lasso_operator(X, y, lam: float, scaled: bool = True,
     op = LinearOperator.over(p, q, {"X": t(Xnp), "D": t(D), "E": t(E)},
                              _lasso_products,
                              nnz=2 * int(np.prod(Xnp.shape)) + m + 1)
+    # the Schur PCG's iteration on these products as two kernels
+    # (`linsys.schur._FusedPCGBlock`)
+    op.pcg_iteration = Iteration
     # Jacobi diagonal of the Schur CG (`init_lasso_precon`,
     # `lasso_config.c:571-587`): the exact column norms of the scaled
     # matrix, from the block structure

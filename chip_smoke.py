@@ -7,13 +7,14 @@ Run from the root of a checkout on a machine with a CUDA card and
 `nvcc`.  It imports no JAX.  Phases, each printing its own lines and its
 duration:
 
-1. build the seven kernel sources from the checkout, one `nvcc` each,
+1. build the eight kernel sources from the checkout, one `nvcc` each,
    side by side: K1 `csrc/admm_delta.cu` (LP delta chunk), K6 and K7
    `csrc/admm_sprint.cu` (LP stopping and plain sprint), K2
    `csrc/conic_ladder.cu` (conic phase 1), K4 `csrc/conic_sprint.cu`
    (conic one-stage sprint), K3 `csrc/conic_delta.cu` (conic delta
    chunk), K5 `csrc/bcsr_spmv.cu` (sparse product over the stored
-   entries), K8 `csrc/barrier_step.cu` (fused barrier step); K1, K2,
+   entries), K8 `csrc/barrier_step.cu` (fused barrier step), F1 and F2
+   `csrc/lasso_pcg.cu` (the LASSO operator's Schur PCG iteration); K1, K2,
    K3, K4, K6 and K7 run one thread-block cluster per lane; the build
    prints each kernel's registers and spills;
 2. host LP driver: hold K5 against its plain version, the tile product
@@ -74,7 +75,17 @@ duration:
    RSOC(4), the rest nonneg, m=50), whose lane one block per lane could
    not hold in shared memory, solved on the card through the kernels
    (K2 with A streamed through L2 at C=6): every lane Solved within 1e-5
-   of its known optimum, as the reference solves it;
+   of its known optimum, as the reference solves it; then the LASSO
+   operator's PCG kernels at the lasso_paper cell's shape (m=1000,
+   n=5000): F1 and F2 held to their plain versions on the card from one
+   mid-solve state within 1e-12 relative, a stopped slot left bit for
+   bit; the matrix-free LASSO through `solve_lasso` (eps 1e-3, F1 and F2
+   counted) against the same solve on the torch-op PCG block (equal
+   status and IPM count, ADMM within 1, PCG iterations within 1%,
+   objective within 1e-6); F1 and F2 timed against their plain
+   versions, F1 against the two cuBLAS `gemv`s and its byte bound (X
+   read once), and a slot of the fused block graph, running and
+   stopped, against the torch-op block's;
 7. the single-instance front door: a fresh dim-1020 instance
    through `solve_qcp` with conic defaults (dense "chol", Woodbury form)
    and again with dense_mode="inverse_mixed", rho_y=1e-3; a diagonal Q
@@ -191,7 +202,7 @@ B = 16
 PROBE = 8
 # every kernel source of the port, built side by side
 SOURCES = ("admm_delta", "admm_sprint", "conic_ladder", "conic_sprint",
-           "conic_delta", "bcsr_spmv", "barrier_step")
+           "conic_delta", "bcsr_spmv", "barrier_step", "lasso_pcg")
 # the LP sprint engines: `bench.py`'s smoke options with the sprint2 knobs
 SPRINT_KW = dict(SOLVE_KW, engine="sprint2", sprint_T=32,
                  sprint_mu_switch=1e-4)
@@ -1820,6 +1831,292 @@ def phase_repair(torch, dev):
     conic_vs_optima(res, stars, "repair")
     if ladder_cuda.launches <= 0:
         raise AssertionError("repair: phase 1 did not launch K2")
+
+
+# ---------------------------------------------------------------------------
+# the LASSO operator's Schur PCG iteration as two kernels (F1, F2)
+# ---------------------------------------------------------------------------
+
+# the lasso_paper cell's shape and eps (`portbench/configs/lasso_paper.json`)
+PCG_CELL = dict(m=1000, n=5000)
+PCG_CELL_EPS = 1e-3
+PCG_SEED = 1005
+# F1 and F2 against their plain versions from one state, relative
+PCG_TOL = 1e-12
+PCG_EAGER_STEPS = 20          # iterations of `cg._pcg_iteration` first
+PCG_TIMED_BLOCKS = 5          # block replays a timed run
+PCG_BLOCK_RUNS = 5            # timed runs, each from the loaded state
+
+
+def pcg_system(torch, dev, seed=PCG_SEED):
+    """(solver, rhs): `CGSchurSolver` on `lasso_operator`'s products of a
+    seeded instance at the cell's shape on the card, with seeded rho_y
+    and rho_x of the sizes a solve meets and the exact Jacobi diagonal,
+    and a seeded rhs."""
+    from benchmarks.generate import lasso_instance
+
+    from abip_tpu_torch.linsys.schur import CGSchurSolver
+    from abip_tpu_torch.problems import lasso_operator
+
+    op = lasso_operator(*lasso_instance(**PCG_CELL, seed=seed),
+                        device=dev).A
+    rng = np.random.default_rng(seed + 1)
+    rho_y = torch.as_tensor(1.0 / (rng.random(op.m) + 0.5), device=dev)
+    rho_x = torch.as_tensor(rng.random(op.n) * 1e-3 + 1e-4, device=dev)
+    diag = torch.as_tensor(op.col_norms_sq, device=dev) + rho_x
+    return (CGSchurSolver(op, None, rho_y, rho_x, diag),
+            torch.as_tensor(rng.standard_normal(op.n), device=dev))
+
+
+def pcg_state(torch, solver, rhs, steps=PCG_EAGER_STEPS):
+    """{x, r, p, ipzr}: the PCG's state `steps` iterations from x = 0."""
+    from abip_tpu_torch.linsys import cg
+
+    st = (torch.zeros_like(rhs),
+          *cg.pcg_start(solver._S, solver.M, rhs, torch.zeros_like(rhs)))
+    for _ in range(steps):
+        st = cg._pcg_iteration(solver._S, solver.M, *st)
+    return dict(zip(("x", "r", "p", "ipzr"), st))
+
+
+class PcgSlot:
+    """F1 and F2 (kernels, or with `plain` their plain versions, on the
+    card's tensors) over copies of a state, in the card's plan."""
+
+    def __init__(self, torch, solver, state, plain=False):
+        from abip_tpu_torch.ops import lasso_pcg
+
+        self.lp, self.solver, self.plain = lasso_pcg, solver, plain
+        self.o = solver.A_op.operands
+        dev = self.o["X"].device
+        self.pl = lasso_pcg.card_plan(*self.o["X"].shape, dev)
+        self.t = {k: v.clone() for k, v in state.items()}
+        self.t["w"] = lasso_pcg.w_of(self.pl, self.t["p"], self.o["E"])
+        self.t["v"] = torch.zeros(self.pl.m, dtype=torch.float64, device=dev)
+        self.t["partials"] = torch.zeros((self.pl.clusters, self.pl.n),
+                                         dtype=torch.float64, device=dev)
+        self.t["flag"] = torch.tensor([1, 0], device=dev)
+        self.tol = torch.tensor(0.0, dtype=torch.float64, device=dev)
+        self.cap = torch.tensor(10 ** 9, device=dev)
+
+    def f1(self):
+        o, t = self.o, self.t
+        fn = self.lp.f1_plain if self.plain else self.lp.f1_cuda
+        fn(self.pl, o["X"], o["D"], o["E"], self.solver.ry_inv, t["p"],
+           t["w"], t["flag"], t["v"], t["partials"])
+
+    def f2(self):
+        o, t, s = self.o, self.t, self.solver
+        fn = self.lp.f2_plain if self.plain else self.lp.f2_cuda
+        fn(self.pl, t["partials"], t["v"], o["D"], o["E"], s.ry_inv,
+           s.rho_x, s.M, self.tol, self.cap, t["x"], t["r"], t["p"], t["w"],
+           t["ipzr"], t["flag"])
+
+
+def phase_lasso_pcg_parity(torch, dev):
+    """F1 and F2 at the cell's shape against their plain versions on the
+    card, from one mid-solve state (`PCG_EAGER_STEPS` iterations in): F1's
+    v and partial rows, then F2's x, r, p, <z, r> and w within PCG_TOL
+    relative, and the same flag; then, with the flag at stopped, a slot
+    changes nothing, bit for bit.  Returns the largest |kernel - plain|
+    of F1's outputs and of F2's."""
+    solver, rhs = pcg_system(torch, dev)
+    state = pcg_state(torch, solver, rhs)
+    ker, plain = (PcgSlot(torch, solver, state, plain=p)
+                  for p in (False, True))
+    worst, lines = {}, []
+    for stage, keys in (("f1", ("v", "partials")),
+                        ("f2", ("x", "r", "p", "ipzr", "w"))):
+        getattr(ker, stage)()
+        getattr(plain, stage)()
+        torch.cuda.synchronize()
+        for k in keys:
+            a, b = ker.t[k].double(), plain.t[k].double()
+            err = float((a - b).abs().max())
+            rel = float(torch.linalg.vector_norm(a - b)
+                        / torch.linalg.vector_norm(b))
+            worst[stage] = max(worst.get(stage, 0.0), err)
+            lines.append(f"{k} {rel:.2e}")
+            if not rel <= PCG_TOL:
+                raise AssertionError(f"F1/F2 parity: {k} {rel:.3e} relative "
+                                     f"beyond {PCG_TOL}")
+    if not ker.t["flag"].tolist() == plain.t["flag"].tolist() == [1, 1]:
+        raise AssertionError(f"F1/F2 parity: flag {ker.t['flag'].tolist()} "
+                             f"vs {plain.t['flag'].tolist()}")
+    ker.t["flag"][0] = 0
+    before = {k: v.clone() for k, v in ker.t.items()}
+    ker.f1()
+    ker.f2()
+    torch.cuda.synchronize()
+    if not all(torch.equal(before[k], v) for k, v in ker.t.items()):
+        raise AssertionError("F1/F2: a stopped slot changed the state")
+    print(f"parity F1/F2 m={ker.pl.m} n={ker.pl.n} (plan {ker.pl.clusters} "
+          f"clusters of {ker.pl.cluster}, F2 {ker.pl.f2_cluster} CTAs), one "
+          f"slot {PCG_EAGER_STEPS} iterations in, relative to the plain "
+          f"versions: {', '.join(lines)} (limit {PCG_TOL}); max|kernel-"
+          f"plain| F1 {worst['f1']:.3e}, F2 {worst['f2']:.3e}; a stopped "
+          "slot unchanged bit for bit: ok")
+    return worst["f1"], worst["f2"]
+
+
+def lasso_cell_solve(torch, dev, fused=True):
+    """(seconds, conic solution) of the matrix-free LASSO at the cell's
+    shape and eps, its PCG blocks as F1/F2 or, with `fused` False, as the
+    torch-op block."""
+    from benchmarks.generate import lasso_instance
+
+    from abip_tpu_torch.linsys import schur
+    from abip_tpu_torch.problems import solve_lasso
+    from abip_tpu_torch.utils.timing import wall_s
+
+    data = lasso_instance(**PCG_CELL, seed=PCG_SEED)
+    real = schur._fused_engages
+    if not fused:
+        schur._fused_engages = lambda *a: False
+    try:
+        sec, out = wall_s(lambda: solve_lasso(
+            *data, eps=PCG_CELL_EPS, matrix_free=True, device=dev))
+    finally:
+        schur._fused_engages = real
+    return sec, out[2]
+
+
+def phase_lasso_pcg_main(torch, dev, card):
+    """The matrix-free LASSO at the cell's shape through `solve_lasso`, as
+    a user calls it, with F1's and F2's launch counts set to 0 just
+    before it: Solved, the two counted alike, ten a replayed block; then
+    again (the graph captured) and on the torch-op block (its own graph
+    captured first), held at the card tests' bar: equal status and IPM
+    count, ADMM within 1, PCG iterations within 1%, objective within 1e-6
+    relative.  Returns (F1 launches, F2 launches)."""
+    from abip_tpu_torch.ops.lasso_pcg import f1_cuda, f2_cuda
+
+    f1_cuda.launches = f2_cuda.launches = 0
+    first, sol = lasso_cell_solve(torch, dev)
+    launches = (f1_cuda.launches, f2_cuda.launches)
+    if (sol.status_name != "Solved" or launches[0] != launches[1]
+            or launches[0] <= 0 or launches[0] % 10):
+        raise AssertionError(f"LASSO F1/F2: {sol.status_name}, launches "
+                             f"{launches}")
+    fused_s, fused = lasso_cell_solve(torch, dev)
+    lasso_cell_solve(torch, dev, fused=False)
+    plain_s, plain = lasso_cell_solve(torch, dev, fused=False)
+    cg_f = fused.avg_cg_iters * fused.admm_iters
+    cg_p = plain.avg_cg_iters * plain.admm_iters
+    rel = abs(fused.pobj - plain.pobj) / abs(plain.pobj)
+    print(f"LASSO matrix-free m={PCG_CELL['m']} n={PCG_CELL['n']} eps "
+          f"{PCG_CELL_EPS} [{card}]: {sol.status_name}, IPM {sol.ipm_iters}, "
+          f"ADMM {sol.admm_iters}, F1/F2 launches {launches} (first solve, "
+          f"capture included, {first:.3f} s); again {fused_s:.3f} s, on the "
+          f"torch-op block {plain_s:.3f} s: IPM {fused.ipm_iters} / "
+          f"{plain.ipm_iters}, ADMM {fused.admm_iters} / {plain.admm_iters}, "
+          f"PCG {cg_f:.0f} / {cg_p:.0f}, objective relative {rel:.3e}")
+    if not (fused.status_name == plain.status_name == "Solved"
+            and fused.ipm_iters == plain.ipm_iters
+            and abs(fused.admm_iters - plain.admm_iters) <= 1
+            and abs(cg_f - cg_p) <= 0.01 * cg_p and rel <= 1e-6):
+        raise AssertionError("LASSO F1/F2 against the torch-op block: off "
+                             "the bar")
+    return launches
+
+
+def block_slot_ms(torch, block, solver, rhs, stopped=False):
+    """Device milliseconds an iteration slot of a PCG block graph at
+    tol 0: PCG_BLOCK_RUNS runs, each loading the state, then timing
+    PCG_TIMED_BLOCKS replays (with `stopped`, the loop stopped first: the
+    flag at stopped, the cap at the count); the median.  Raises where a
+    running loop stopped or a stopped one ran."""
+    import statistics
+
+    from abip_tpu_torch.linsys import cg
+
+    tol = torch.tensor(0.0, dtype=torch.float64, device=rhs.device)
+    times = []
+    for _ in range(PCG_BLOCK_RUNS + 1):
+        block._load(solver, rhs, torch.zeros_like(rhs), tol)
+        block.run()                             # the capture, at first
+        if stopped:
+            block.flag[0] = 0
+            block.cap.copy_(block.flag[1])
+        its = int(block.flag[1])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(PCG_TIMED_BLOCKS):
+            block.graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end)
+                     / (PCG_TIMED_BLOCKS * cg.PCG_BLOCK))
+        ran = int(block.flag[1]) - its
+        if ran != (0 if stopped else PCG_TIMED_BLOCKS * cg.PCG_BLOCK):
+            raise AssertionError(f"PCG block (stopped {stopped}): ran {ran} "
+                                 "iterations")
+    return statistics.median(times[1:])
+
+
+def phase_lasso_pcg_timing(torch, dev, card):
+    """F1 and F2 per launch at the cell's shape (queued behind a device
+    wait; F2 from the state restored before each launch, outside its
+    events) against their plain versions on the card, F1 against the two
+    cuBLAS f64 `gemv`s that read X for the torch-op block (X w, X'v), each
+    against its bound; a slot of the fused block graph, running and
+    stopped, against the torch-op block's.  Returns (F1 times, F2 times,
+    the gemvs' ms, {slot times})."""
+    from abip_tpu_torch.linsys import schur
+    from abip_tpu_torch.utils.timing import cuda_ms, queued_ms
+
+    solver, rhs = pcg_system(torch, dev)
+    state = pcg_state(torch, solver, rhs)
+    ker, plain = (PcgSlot(torch, solver, state, plain=p)
+                  for p in (False, True))
+    ker.f1()
+    plain.f1()
+    saved = {k: v.clone() for k, v in ker.t.items()}
+
+    def restore():
+        for k, v in saved.items():
+            ker.t[k].copy_(v)
+
+    def restore_plain():
+        for k, v in saved.items():
+            plain.t[k].copy_(v)
+
+    X, pl = ker.o["X"], ker.pl
+    m, n = pl.m, pl.n
+    f1_ms, f1_plain = queued_ms(ker.f1), cuda_ms(plain.f1, iters=3)
+    f2_ms = queued_ms(ker.f2, between=restore)
+    restore_plain()
+    f2_plain = cuda_ms(plain.f2, iters=3)
+    w, v = ker.t["w"], ker.t["v"]
+    gemv_ms = queued_ms(lambda: (X @ w, X.T @ v))
+    f1_bound = bound_ms(8.0 * m * n, 4.0 * m * n, "f64")
+    q = 2 + m + 2 * n
+    # F2 reads the partial rows, v, six q-vectors (p, E, rho_x, x, r, M)
+    # and writes three (x, r, p) and w
+    f2_bytes = 8.0 * (pl.clusters * n + m + 9 * q + n + 2 * (1 + m))
+    f2_bound = bound_ms(f2_bytes, 30.0 * q, "f64")
+    slots = {}
+    for name, kind in (("fused", schur._FusedPCGBlock),
+                       ("torch-op", schur._PCGBlock)):
+        block = kind(solver, rhs)
+        slots[name] = block_slot_ms(torch, block, solver, rhs)
+        slots[f"{name} stopped"] = block_slot_ms(torch, block, solver, rhs,
+                                                 stopped=True)
+    print(f"timing F1 m={m} n={n} [{card}]: kernel {f1_ms * 1e3:.2f} us "
+          f"({8.0 * m * n / f1_ms / 1e9:.3f} TB/s), plain "
+          f"{f1_plain * 1e3:.1f} us, two cuBLAS gemvs {gemv_ms * 1e3:.2f} us, "
+          f"bound {f1_bound[0] * 1e3:.2f} us ({f1_bound[1]}), "
+          f"{100 * f1_bound[0] / f1_ms:.1f}% of the bound")
+    print(f"timing F2 m={m} n={n} [{card}]: kernel {f2_ms * 1e3:.2f} us, "
+          f"plain {f2_plain * 1e3:.1f} us, bound {f2_bound[0] * 1e3:.3f} us "
+          f"({f2_bound[1]})")
+    print(f"timing PCG slot m={m} n={n} [{card}]: " + ", ".join(
+        f"{k} {t * 1e3:.2f} us" for k, t in slots.items())
+        + f" (a slot of a block graph replayed {PCG_TIMED_BLOCKS}x, median "
+        f"of {PCG_BLOCK_RUNS})")
+    return ((f1_ms, f1_plain, *f1_bound), (f2_ms, f2_plain, *f2_bound),
+            gemv_ms, slots)
 
 
 # ---------------------------------------------------------------------------
@@ -4071,6 +4368,11 @@ def main():
                    card)
     phase("spilled forms", phase_spilled, torch, dev)
     phase("shape repair", phase_repair, torch, dev)
+    f1_err, f2_err = phase("F1/F2 parity", phase_lasso_pcg_parity, torch, dev)
+    pcg_launches = phase("LASSO matrix-free main path",
+                         phase_lasso_pcg_main, torch, dev, card)
+    f1, f2, gemv_ms, slots = phase("F1/F2 timing", phase_lasso_pcg_timing,
+                                   torch, dev, card)
 
     t7 = time.perf_counter()
     # first the loop that reads the card at every CG iteration, which a
@@ -4166,7 +4468,11 @@ def main():
               sizes={f"{kind} n={n}": dict(zip(
                   ("ms", "plain_ms", "bound_ms", "bound_by"), t))
                   for kind, by_n in k8[0].items()
-                  for n, t in by_n.items()})]}))
+                  for n, t in by_n.items()}),
+        entry("f1_kernel", "lasso_pcg.cu", None, pcg_launches[0], f1_err,
+              f1, library=gemv_ms, slot_ms=slots),
+        entry("f2_kernel", "lasso_pcg.cu", None, pcg_launches[1], f2_err,
+              f2)]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,11 @@ beside another thread solving.
 The Schur PCG of the host conic driver replayed as CUDA graphs of
 10-iteration blocks against its eager loop, bit for bit (a matrix-free
 LASSO, a dense A), one graph captured for two solves of one shape on
-different X, and every PCG iteration run in a block.
+different X, and every PCG iteration run in a block.  The LASSO
+operator's PCG iteration as the two kernels of `csrc/lasso_pcg.cu` (F1,
+F2): against their plain versions at the LASSO cell's shape, the same
+bits from run to run, fused solves against eager ones at the stated bar,
+their launches counted through a replay, and one graph for two X.
 The host conic driver (no kernel of its own): `solve_qcp` on the card
 against the port on the CPU, the CLI's file functions on the card, and
 one full-size instance of the benchmark's `lasso_paper` configuration
@@ -628,12 +632,15 @@ def _card_dense_cg():
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["lasso", "dense-cg"])
 def test_schur_pcg_graph_matches_eager_loop(cuda_device, monkeypatch, case):
-    """The Schur PCG replayed as CUDA graphs of blocks gives its eager
-    loop's x, y, s bit for bit, with the same ADMM, IPM and PCG counts:
-    on a matrix-free LASSO (`lasso_operator`'s X, D and E in the graph's
-    buffers) and on a dense A (`solve_qcp(linsys="cg")`)."""
+    """The Schur PCG replayed as CUDA graphs of blocks of the torch-op
+    body gives its eager loop's x, y, s bit for bit, with the same ADMM,
+    IPM and PCG counts: on a matrix-free LASSO (`lasso_operator`'s X, D
+    and E in the graph's buffers; its F1/F2 body made not to engage, as
+    `test_lasso_pcg_fused_solves_against_eager` holds that one at its
+    bar) and on a dense A (`solve_qcp(linsys="cg")`)."""
     from abip_tpu_torch.linsys import schur
 
+    monkeypatch.setattr(schur, "_fused_engages", lambda *a: False)
     fn = (lambda: _card_lasso(5)) if case == "lasso" else _card_dense_cg
     runs, real = [], schur._PCGBlock.run
     monkeypatch.setattr(schur._PCGBlock, "run",
@@ -650,12 +657,14 @@ def test_schur_pcg_graph_matches_eager_loop(cuda_device, monkeypatch, case):
 
 @pytest.mark.cuda
 def test_schur_pcg_graph_captured_once_a_shape(cuda_device, monkeypatch):
-    """Two LASSO solves of one shape on different X capture one graph;
-    the second copies its own X into the graph's buffers and gives that
-    X's eager answer bit for bit."""
+    """Two LASSO solves of one shape on different X capture one graph
+    (of the torch-op body; `test_lasso_pcg_graph_reloads_x` holds the
+    F1/F2 one); the second copies its own X into the graph's buffers and
+    gives that X's eager answer bit for bit."""
     from abip_tpu_torch.linsys import schur
     from abip_tpu_torch.utils import graphs
 
+    monkeypatch.setattr(schur, "_fused_engages", lambda *a: False)
     monkeypatch.setattr(schur, "_GRAPHS", graphs.GraphCache(
         schur._GRAPHS.kept))
     before = graphs.BlockGraph.captures
@@ -687,6 +696,129 @@ def test_schur_pcg_graph_runs_every_iteration(cuda_device):
     assert root.name == "qcp.solve" and blocks
     assert sum(s.attrs["iters"] for s in blocks) == root.attrs["cg_iters"] \
         == sum(s.attrs["iters"] for s in spans if s.name == "qcp.cg") > 0
+
+
+# -- the LASSO operator's PCG iteration as two kernels (F1, F2) ---------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps, bar", [(1, 1e-12), (10, 1e-10)])
+def test_lasso_pcg_kernels_match_twin(cuda_device, steps, bar):
+    """`csrc/lasso_pcg.cu`'s F1 and F2 at the LASSO cell's shape (m=1000,
+    n=5000, a seeded X) against their plain versions on the CPU from one
+    state, in the card's plan: x, r, p, <z, r>, w, v and the partial rows
+    within 1e-12 relative after one iteration and 1e-10 after a block,
+    and the same flag."""
+    import lasso_pcg_cases as cases
+    from abip_tpu_torch.ops import lasso_pcg
+
+    solver, b = cases.system(1000, 5000, device=cuda_device)
+    state = cases.start(solver, b)
+    pl = lasso_pcg.card_plan(1000, 5000, cuda_device)
+    got = cases.Fused(solver, state, pl).slot(steps)
+    torch.cuda.synchronize()
+    want = cases.Fused(cases.on_cpu(solver),
+                       {k: v.cpu() for k, v in state.items()}, pl).slot(steps)
+    for k in ("x", "r", "p", "ipzr", "w", "v", "partials"):
+        assert cases.rel(got[k], want[k]) <= bar, k
+    assert got["flag"].tolist() == want["flag"].tolist() == [1, steps]
+
+
+@pytest.mark.cuda
+def test_lasso_pcg_kernels_repeat_their_bits(cuda_device):
+    """Two runs of a block of F1 and F2 from one state give the same bits
+    (no float atomics: every sum has its order); where the flag says the
+    loop has stopped, both change nothing."""
+    import lasso_pcg_cases as cases
+    from abip_tpu_torch.ops import lasso_pcg
+
+    solver, b = cases.system(1000, 5000, seed=2, device=cuda_device)
+    state = cases.start(solver, b)
+    pl = lasso_pcg.card_plan(1000, 5000, cuda_device)
+    one, two = (cases.Fused(solver, state, pl) for _ in range(2))
+    a, b2 = one.slot(10), two.slot(10)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a[k], b2[k]) for k in a)
+    one.t["flag"][0] = 0
+    before = {k: v.clone() for k, v in one.t.items()}
+    one.slot(3)
+    torch.cuda.synchronize()
+    assert all(torch.equal(before[k], v) for k, v in one.t.items())
+
+
+def _card_lasso_runs(m, n, seed):
+    """(the fused solve, the eager solve) of one matrix-free LASSO."""
+    from abip_tpu_torch.linsys import schur
+
+    fused = _card_lasso(seed, m, n)
+    real = schur._graph_engages
+    schur._graph_engages = lambda *a: False
+    try:
+        eager = _card_lasso(seed, m, n)
+    finally:
+        schur._graph_engages = real
+    return fused, eager
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m, n, seed", [(200, 1000, 5), (1000, 5000, 11)])
+def test_lasso_pcg_fused_solves_against_eager(cuda_device, m, n, seed):
+    """A matrix-free LASSO whose Schur PCG runs as F1/F2 blocks against
+    the eager PCG: both Solved with the same IPM count, the ADMM count
+    within 1, the PCG iterations within 1%, the objective within 1e-6
+    relative."""
+    fused, eager = _card_lasso_runs(m, n, seed)
+    assert fused.status_name == eager.status_name == "Solved"
+    assert fused.ipm_iters == eager.ipm_iters
+    assert abs(fused.admm_iters - eager.admm_iters) <= 1
+    cg_f = fused.avg_cg_iters * fused.admm_iters
+    cg_e = eager.avg_cg_iters * eager.admm_iters
+    assert abs(cg_f - cg_e) <= 0.01 * cg_e
+    assert abs(fused.pobj - eager.pobj) <= 1e-6 * abs(eager.pobj)
+
+
+@pytest.mark.cuda
+def test_lasso_pcg_graph_counts_its_launches(cuda_device):
+    """Under the profiler, a LASSO solve on a captured F1/F2 graph: its
+    blocks' `fused_iters` add up to the root's `cg_iters`, and every
+    replayed block counts ten launches of F1 and ten of F2."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from abip_tpu_torch.ops import lasso_pcg
+    from abip_tpu_torch.utils import profiling
+
+    _card_lasso(8)                      # captures
+    f1, f2 = lasso_pcg.f1_cuda.launches, lasso_pcg.f2_cuda.launches
+    profiling.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _card_lasso(8)
+    spans = profiling.spans()
+    profiling.clear()
+    (root,) = [s for s in spans if s.parent_id is None]
+    blocks = [s for s in spans if s.name == "qcp.cg_block"]
+    assert sum(s.attrs["fused_iters"] for s in blocks) \
+        == sum(s.attrs["iters"] for s in blocks) == root.attrs["cg_iters"] > 0
+    assert lasso_pcg.f1_cuda.launches - f1 \
+        == lasso_pcg.f2_cuda.launches - f2 == 10 * len(blocks)
+
+
+@pytest.mark.cuda
+def test_lasso_pcg_graph_reloads_x(cuda_device, monkeypatch):
+    """Two LASSO solves of one shape on different X capture one F1/F2
+    graph; the second, replayed over its own X, gives bit for bit what a
+    graph captured for that X alone gives."""
+    from abip_tpu_torch.linsys import schur
+    from abip_tpu_torch.utils import graphs
+
+    monkeypatch.setattr(schur, "_GRAPHS", graphs.GraphCache(
+        schur._GRAPHS.kept))
+    before = graphs.BlockGraph.captures
+    _, second = _card_lasso(6), _card_lasso(7)
+    assert graphs.BlockGraph.captures - before == 1
+    (graph,) = schur._GRAPHS._graphs.values()
+    assert isinstance(graph, schur._FusedPCGBlock)
+    monkeypatch.setattr(schur, "_GRAPHS", graphs.GraphCache(
+        schur._GRAPHS.kept))
+    _assert_same_solutions([second], [_card_lasso(7)])
 
 
 # -- the host conic driver ----------------------------------------------------

@@ -264,10 +264,10 @@ def test_cell_at_its_tiny_shape(trace):
     """`portbench.harness.run` of the cell on the CPU at its
     configuration's tiny shape, in a process of its own (a run refuses a
     process that holds JAX): correct, nothing failed, and every metric
-    of the cell but the device's reported above 0, but for the share of
-    PCG iterations run in CUDA graphs' blocks, which run only on a card
-    and read 0 here."""
-    card_only = {"qcp.cg_block_iter_share"}
+    of the cell but the device's reported above 0, but for the shares of
+    PCG iterations run in CUDA graphs' blocks and through the LASSO
+    operator's two kernels, which run only on a card and read 0 here."""
+    card_only = {"qcp.cg_block_iter_share", "qcp.cg_fused_iter_share"}
     proc = subprocess.run(
         [sys.executable, "-c", RUN, CELL, str(trace)], cwd=ROOT,
         capture_output=True, text=True, timeout=600)
